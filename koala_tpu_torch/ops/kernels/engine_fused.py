@@ -1,0 +1,297 @@
+"""The whole enhancement engine in one launch: CUDA kernel and plain version.
+
+``fused_sequence`` replaces the JAX package's TPU kernel ``fused_sequence``
+(ops/pallas/engine_fused.py:384 -> _fused_call :285 -> _kernel :118). Per
+hop of every stream, over T hops in one launch:
+
+    split-K windowed DFT of [carry | hop] -> log-magnitude, band log-energy,
+    floor tracker, SNR and floor-level features, 8 cepstral group maxima ->
+    encoder + tanh-GELU -> L-layer GRU -> decoder sigmoid mask + passthrough
+    gate -> masked inverse DFT -> overlap-add
+
+bf16 product operands with f32 sums everywhere (the DFT bases too), f32
+state, the frame carry held as bf16 - the TPU kernel's numerics. Compared
+with the engine's float32 DFT path the output moves by bf16 spectral
+rounding only (tests hold it at >= 35 dB).
+
+Layout (``Layout`` below): the spectrum is computed on the 257 real bins,
+padded to KR = 272 (a multiple of the 16-wide tensor-core tile) for re and
+KI = 256 for im (the im Nyquist bin is identically zero). Padding columns
+carry exact zeros and zero weight rows, so they never reach a real output.
+
+On this card the kernel's least time is set by the bf16 products
+(operations); what limits this first design is that every block reads all weights and
+bases (about 5 MB) from L2 once per hop. One block owns 16 stream rows for
+the whole T loop and keeps every temporary and all state in shared memory
+(csrc/engine_fused.cu).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...constants import FFT_SIZE, FRAME_LENGTH, NUM_BINS
+from ...models.mask_gru import _band_matrix_np, _cep_matrix_np
+from ..stft import _windowed_bases
+from . import _build
+from .gru import layers_step
+
+T_BLOCK = 8        # sequence_fast runs whole multiples of this through the kernel
+KR = 272           # re bins, 257 padded to a multiple of 16
+KI = 256           # im bins 0..255 (the Nyquist bin's im is identically 0)
+KS = KR + KI       # spectrum width
+MAX_CEP = 8
+SMEM_LIMIT = 232448   # dynamic shared memory one block may use on Hopper
+
+# launches of the CUDA kernel since the last reset (a plain integer)
+launches = 0
+
+
+def _ceil16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+class Layout:
+    """Widths of the kernel's operands for one configuration."""
+
+    def __init__(self, cfg):
+        self.nb = cfg["snr_bands"]
+        self.nbp = _ceil16(self.nb)
+        self.cep = cfg.get("cep_feats") or 0
+        self.lagp = _ceil16(161)
+        self.enc_in = KR + 2 * self.nbp
+        self.decn = KR + 16            # decoder columns + one tile for the gate
+        self.hidden = cfg["hidden"]
+        self.layers = cfg["num_layers"]
+
+
+def fused_sequence_supported(cfg, batch: int, t_len: int, device) -> bool:
+    """Shape/config gate for the fused engine kernel on ``device``. Any
+    batch >= 1 and any T >= 1 are taken; the conditions are what the kernel's
+    layout needs. On a card the block's shared memory, as the CUDA source
+    carves it, must also fit; the CPU's plain version has no such limit."""
+    if cfg.get("kind", "mask_gru") != "mask_gru":
+        return False
+    if cfg.get("bins", NUM_BINS) != NUM_BINS:
+        return False
+    if not cfg.get("snr_bands") or not cfg.get("floor_feat"):
+        return False
+    if (cfg.get("cep_feats") or 0) > MAX_CEP:
+        return False
+    if cfg.get("compute_dtype") != "bfloat16":
+        return False
+    if cfg["hidden"] % 16 != 0 or cfg["hidden"] > KS or cfg["num_layers"] < 1:
+        return False
+    if batch < 1 or t_len < 1:
+        return False
+    if torch.device(device).type != "cuda":
+        return True
+    smem = _build.library().koala_engine_fused_smem(
+        cfg["snr_bands"], cfg["hidden"], cfg["num_layers"])
+    return smem <= SMEM_LIMIT
+
+
+def _cfg_key(cfg) -> str:
+    return repr(sorted((k, v) for k, v in cfg.items()
+                       if isinstance(v, (int, float, str, bool))))
+
+
+def prepare(params, cfg) -> Dict[str, Any]:
+    """The kernel's operand set, derived from the model's weights (cached on
+    the parameter module): bases and weights in bf16 in the padded layout,
+    biases and the cepstral rank-1 rows in f32."""
+    def build():
+        lay = Layout(cfg)
+        dev = params.enc.w.device
+        bins, nb, h = cfg["bins"], lay.nb, lay.hidden
+        fwd, inv_re, inv_im = _windowed_bases(FFT_SIZE)     # [512,514], [257,512] x2
+        fwd_p = np.zeros((FFT_SIZE, KS), np.float32)
+        fwd_p[:, :bins] = fwd[:, :bins]
+        fwd_p[:, KR:KR + KI] = fwd[:, bins:bins + KI]
+        inv_p = np.zeros((KS, FFT_SIZE), np.float32)
+        inv_p[:bins] = inv_re
+        inv_p[KR:KR + KI] = inv_im[:KI]
+        band = np.zeros((KR, lay.nbp), np.float32)
+        band[:bins, :nb] = _band_matrix_np(bins, nb)
+        cepb = np.zeros((KR, lay.lagp), np.float32)
+        bounds = ()
+        if lay.cep:
+            basis, bounds = _cep_matrix_np(bins, lay.cep)
+            cepb[:bins, :basis.shape[1]] = basis
+        enc_w = params.enc.w.detach().float().cpu().numpy()
+        wenc = np.zeros((lay.enc_in, h), np.float32)
+        wenc[:bins] = enc_w[:bins]
+        wenc[KR:KR + nb] = enc_w[bins:bins + nb]
+        wenc[KR + lay.nbp:KR + lay.nbp + nb] = enc_w[bins + nb:bins + 2 * nb]
+        wcep = np.zeros((max(lay.cep, 1), h), np.float32)
+        wcep[:lay.cep] = enc_w[bins + 2 * nb:bins + 2 * nb + lay.cep]
+        wdec = np.zeros((h, lay.decn), np.float32)
+        wdec[:, :bins] = params.dec.w.detach().float().cpu().numpy()
+        # padded mask columns: bias -30 (sigmoid ~ 0); their re/im are 0
+        bdec = np.full((lay.decn,), -30.0, np.float32)
+        bdec[:bins] = params.dec.b.detach().float().cpu().numpy()
+        wdec[:, KR] = params.gate.w.detach().float().cpu().numpy()[:, 0]
+        bdec[KR] = float(params.gate.b.detach().float().cpu().numpy()[0])
+
+        def bf(a):
+            return torch.as_tensor(a, device=dev).bfloat16().contiguous()
+
+        def f32(a):
+            return torch.as_tensor(a, device=dev).float().contiguous()
+
+        wx, bx, wh, bh = params.gru_stacked()
+        return {"fwd": bf(fwd_p), "inv": bf(inv_p), "band": bf(band), "cepb": bf(cepb),
+                "wenc": bf(wenc), "benc": params.enc.b.detach().float().contiguous(),
+                "wcep": f32(wcep), "wdec": bf(wdec), "bdec": f32(bdec),
+                "wx": wx, "bx": bx, "wh": wh, "bh": bh, "bounds": bounds,
+                "layout": lay}
+    return params.derived("fused:" + _cfg_key(cfg), build)
+
+
+def _scalars(cfg):
+    f32 = np.float32
+    return {"eps2": float(f32(cfg["feat_eps"]) ** 2), "rise": float(f32(cfg["floor_rise"])),
+            "feat_shift": float(f32(cfg["feat_shift"])),
+            "feat_scale": float(f32(cfg["feat_scale"])),
+            "snr_scale": float(f32(cfg["snr_scale"])), "snr_clip": float(f32(cfg["snr_clip"])),
+            "cep_scale": float(f32(cfg["cep_scale"]))}
+
+
+def _mmb(a_bf16, w_bf16):
+    """bf16 x bf16 product with f32 sums (exact products, f32 accumulation)."""
+    return a_bf16.float() @ w_bf16.float()
+
+
+def fused_sequence_ref(params, state, hops, cfg):
+    """Plain version: mirrors the TPU kernel's op order and dtypes
+    (the JAX package's ops/pallas/engine_fused.py:408-500) on the layout of
+    ``prepare``. (params, state, hops [B,T,256] f32) -> (state', out [B,T,256])."""
+    ops = prepare(params, cfg)
+    lay = ops["layout"]
+    s = _scalars(cfg)
+    b = hops.shape[0]
+    fwd, inv = ops["fwd"], ops["inv"]
+    dftt, dftb = fwd[:FRAME_LENGTH], fwd[FRAME_LENGTH:]
+    wenc, wdec = ops["wenc"], ops["wdec"]
+    carry = state["input_carry"].bfloat16()
+    ola = state["ola"].float()
+    floor = torch.full((b, lay.nbp), 30.0, device=hops.device)
+    floor[:, :lay.nb] = state["model"]["floor"]
+    h = state["model"]["h"].movedim(-2, 0).float()               # [L, B, H]
+    hops_bf = hops.bfloat16()
+    outs = []
+    for t in range(hops.shape[1]):
+        hop = hops_bf[:, t, :]
+        spec = _mmb(carry, dftt) + _mmb(hop, dftb)
+        re, im = spec[:, :KR], spec[:, KR:]
+        mag2 = re * re + F.pad(im * im, (0, KR - KI))
+        logmag = 0.5 * torch.log(mag2 + s["eps2"])
+        feat = (logmag + s["feat_shift"]) * s["feat_scale"]
+        lb = torch.log(_mmb(mag2.bfloat16(), ops["band"]) + s["eps2"])
+        floor = torch.minimum(floor + s["rise"], lb)
+        snr = torch.clamp((lb - floor) * s["snr_scale"], 0.0, s["snr_clip"])
+        lvl = (floor + 9.0) * 0.15
+        enc = (_mmb(feat.bfloat16(), wenc[:KR])
+               + _mmb(snr.bfloat16(), wenc[KR:KR + lay.nbp])
+               + _mmb(lvl.bfloat16(), wenc[KR + lay.nbp:])
+               + ops["benc"])
+        if lay.cep:
+            c = _mmb(logmag.bfloat16(), ops["cepb"])
+            for g, (lo, hi) in enumerate(ops["bounds"]):
+                mg = c[:, lo:hi].amax(dim=1, keepdim=True)
+                cg = torch.clamp(mg * s["cep_scale"], -1.0, 4.0)
+                enc = enc + cg * ops["wcep"][g][None, :]
+        x_f = F.gelu(enc, approximate="tanh")
+        h, x_bf = layers_step(h, x_f.bfloat16(), ops["wx"], ops["bx"], ops["wh"], ops["bh"])
+        dec = _mmb(x_bf, wdec)
+        mask = torch.sigmoid(dec[:, :KR] + ops["bdec"][:KR])
+        gate = torch.sigmoid(dec[:, KR:KR + 1] + ops["bdec"][KR])
+        mask = mask + gate * (1.0 - mask)
+        mre = (re * mask).bfloat16()
+        mim = (im * mask[:, :KI]).bfloat16()
+        synth = _mmb(mre, inv[:KR]) + _mmb(mim, inv[KR:])
+        outs.append(synth[:, :FRAME_LENGTH] + ola)
+        ola = synth[:, FRAME_LENGTH:]
+        carry = hop
+    out = torch.stack(outs, dim=1) if outs else hops.float()
+    new_state = {"input_carry": hops[:, -1, :].float(), "ola": ola,
+                 "model": {"h": h.movedim(0, -2), "floor": floor[:, :lay.nb]}}
+    return new_state, out
+
+
+class _Args(ctypes.Structure):
+    """Mirror of struct FusedArgs in csrc/engine_fused.cu (field for field)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "hops", "fwd", "band", "cepb", "wenc", "benc", "wcep", "wx", "bx", "wh", "bh",
+        "wdec", "bdec", "inv", "carry0", "ola0", "floor0", "h0",
+        "out", "ola_out", "floor_out", "h_out", "stream")]
+        + [(n, ctypes.c_int) for n in ("B", "T", "H", "L", "nb", "cep")]
+        + [("cep_lo", ctypes.c_int * MAX_CEP), ("cep_hi", ctypes.c_int * MAX_CEP)]
+        + [(n, ctypes.c_float) for n in (
+            "eps2", "feat_shift", "feat_scale", "rise", "snr_scale", "snr_clip",
+            "cep_scale")])
+
+
+def fused_sequence(params, state, hops, cfg):
+    """Fused-engine sequence: (params, engine state, hops [B,T,256] f32) ->
+    (state', out [B,T,256] f32), with the engine's state contract. Chunking
+    is exact: [0:T1] then [T1:T] equals one [0:T] call bit for bit. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or raise)."""
+    global launches
+    if hops.device.type == "cpu":
+        return fused_sequence_ref(params, state, hops, cfg)
+    if hops.dim() != 3 or hops.shape[-1] != FRAME_LENGTH:
+        raise ValueError("fused_sequence: hops must be [B, T, 256], got %s"
+                         % (tuple(hops.shape),))
+    b, t_len, _ = hops.shape
+    if not fused_sequence_supported(cfg, b, t_len, hops.device):
+        raise ValueError("fused_sequence: configuration or shape not supported")
+    ops = prepare(params, cfg)
+    lay = ops["layout"]
+    h, L = lay.hidden, lay.layers
+    carry0 = state["input_carry"].float().contiguous()
+    ola0 = state["ola"].float().contiguous()
+    floor0 = state["model"]["floor"].float().contiguous()
+    h0 = state["model"]["h"].float().contiguous()               # [B, L, H]
+    hops = hops.contiguous()
+    _build.require_cuda(hops, "fused hops", torch.float32)
+    for name, t, shape in (("carry", carry0, (b, FRAME_LENGTH)),
+                           ("ola", ola0, (b, FRAME_LENGTH)),
+                           ("floor", floor0, (b, lay.nb)), ("h", h0, (b, L, h))):
+        _build.require_cuda(t, "fused " + name, torch.float32, shape)
+    for name in ("fwd", "band", "cepb", "wenc", "wdec", "inv", "wx", "wh"):
+        _build.require_cuda(ops[name], "fused " + name, torch.bfloat16, aligned=True)
+    for name in ("benc", "wcep", "bdec", "bx", "bh"):
+        _build.require_cuda(ops[name], "fused " + name, torch.float32)
+    out = torch.empty_like(hops)
+    ola_out = torch.empty_like(ola0)
+    floor_out = torch.empty_like(floor0)
+    h_out = torch.empty_like(h0)
+    args = _Args(**{k: ops[k].data_ptr() for k in (
+        "fwd", "band", "cepb", "wenc", "benc", "wcep", "wx", "bx", "wh", "bh", "wdec",
+        "bdec", "inv")})
+    args.hops, args.carry0, args.ola0 = hops.data_ptr(), carry0.data_ptr(), ola0.data_ptr()
+    args.floor0, args.h0 = floor0.data_ptr(), h0.data_ptr()
+    args.out, args.ola_out = out.data_ptr(), ola_out.data_ptr()
+    args.floor_out, args.h_out = floor_out.data_ptr(), h_out.data_ptr()
+    args.stream = _build.stream_handle(hops.device)
+    args.B, args.T, args.H, args.L, args.nb, args.cep = b, t_len, h, L, lay.nb, lay.cep
+    for g, (lo, hi) in enumerate(ops["bounds"]):
+        args.cep_lo[g], args.cep_hi[g] = lo, hi
+    for k, v in _scalars(cfg).items():
+        setattr(args, k, v)
+    status = _build.library().koala_engine_fused(ctypes.byref(args))
+    launches += 1
+    _build.check(status, "koala_engine_fused")
+    new_state = {"input_carry": hops[:, -1, :].clone(), "ola": ola_out,
+                 "model": {"h": h_out, "floor": floor_out}}
+    return new_state, out
+
+
+__all__ = ["fused_sequence", "fused_sequence_ref", "fused_sequence_supported",
+           "prepare", "Layout", "T_BLOCK"]
