@@ -18,7 +18,22 @@
    Times kernel, plain version and (where one exists) a library call with
    CUDA events after warm-up, and computes each kernel's bound from its
    shapes and the card's published peaks.
-4. Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+4. Drives the training path through ``train_on_device`` and
+   ``make_train_step`` at the full width of ``TRAIN_CONFIG`` (B = 64 x T = 63
+   from a seeded ``init_params`` on tapes from the corpus synthesiser), again
+   with the counters set to 0 just before and read just after: every step
+   launches the GRU kernel's ``return_hidden`` variant and the floor kernel
+   once and the fused kernel never. Checks finite losses, a falling loss on
+   one fixed batch, the trained weights saved, loaded and used through
+   ``create_batch``; holds the ``return_hidden`` variant against the
+   inference variant (bit-identical y and h_final) and its plain version at
+   B = 64 x 63, 128 x 125 and a ragged B = 40; holds both differentiable
+   wrappers against autograd through their plain versions, and the loss and
+   its gradients on the card against the port on the CPU; holds the floor
+   kernel against its plain version on the training path's inputs too
+   (bit-identical); times a train step and its parts at B = 64 x 63 and
+   B = 128 x 125, each shape twice.
+5. Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero. Without a CUDA card, or without the
@@ -27,10 +42,16 @@ repository beside it, it exits nonzero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import io
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +69,13 @@ GRU_SNR_DB = 40.0              # GRU y against its plain version
 GRU_MAX_ABS = 0.1              # ... and h_final / y max |err| (bf16 flips, 376 steps)
 FUSED_SNR_DB = 40.0
 CHUNK_SNR_DB = 35.0
+TRAIN_B, TRAIN_T = 64, 63      # train_on_device's own defaults
+RECIPE_B, RECIPE_T = 128, 125  # the training script's recipe
+TRAIN_STEPS = 20
+GRAD_COS = 0.999               # kernel-forward gradients against autograd through the
+GRAD_NORM = 0.02               # plain version: per-leaf cosine and relative norm
+LOSS_REL = 1e-3                # loss on the card against the port on the CPU
+LOSS_GRAD_COS = 0.99           # ... and its per-leaf gradient cosine
 
 
 def fail(msg: str) -> None:
@@ -104,10 +132,10 @@ class Recorder:
         self.args = None
 
     def __enter__(self):
-        def wrapped(*args):
+        def wrapped(*args, **kwargs):
             if self.args is None:
                 self.args = clone(args)
-            return self.orig(*args)
+            return self.orig(*args, **kwargs)
         setattr(self.module, self.name, wrapped)
         return self
 
@@ -133,6 +161,343 @@ def mix_streams(n: int) -> np.ndarray:
         gain = float(rng.uniform(0.5, 1.0))
         rows.append(mix[off:off + n] * gain)
     return np.clip(np.round(np.stack(rows)), -32768, 32767).astype(np.int16)
+
+
+def cosine(a, b) -> float:
+    a, b = a.double().flatten().cpu(), b.double().flatten().cpu()
+    return float(torch.dot(a, b) / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def gru_bound(t_len, b, h, layers, hidden_out: bool):
+    """Least time (ms) of the GRU stack on this card, by bytes and by
+    operations: x and y bf16, h in and out f32, the weights once, and with
+    ``hidden_out`` the streamed states hs [T, L, B, H] f32; bf16 products on
+    the tensor cores beside the f32 gate math on the CUDA cores (the two run
+    side by side, so the slower of them)."""
+    n_bytes = (2 * t_len * b * h * 2 + 2 * layers * b * h * 4
+               + 2 * layers * h * 3 * h * 2 + 2 * layers * 3 * h * 4
+               + (t_len * layers * b * h * 4 if hidden_out else 0))
+    mm = t_len * layers * 2 * (2 * b * h * 3 * h)
+    ew = t_len * layers * b * h * 16 + t_len * layers * b * 3 * h * 2
+    return {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "operations": max(mm / BF16_TENSOR_FLOPS, ew / F32_FLOPS) * 1e3}
+
+
+def cudnn_gru_yardstick(xg, h0, training: bool):
+    """The library yardstick of the GRU stack: one cuDNN ``nn.GRU`` per layer
+    in bf16 with residual adds (gate order r, z, n there: the same work, not
+    the same function of the port's weights). ``training``: the forward
+    writes the reserve space of a backward pass. Timed here, used nowhere in
+    the port."""
+    h = xg.shape[-1]
+    layers = [torch.nn.GRU(h, h).to(xg.device, torch.bfloat16).train(training)
+              for _ in range(h0.shape[0])]
+    for m in layers:
+        m.flatten_parameters()
+
+    def run():
+        xx = xg
+        for i, m in enumerate(layers):
+            yy, _ = m(xx, h0[i:i + 1].bfloat16())
+            xx = xx + yy
+        return xx
+
+    return run
+
+
+def grad_agreement(name, got, want):
+    """(cosine, relative norm difference) of two gradients; fails the run
+    outside GRAD_COS / GRAD_NORM."""
+    cos = cosine(got, want)
+    got, want = got.double().flatten(), want.double().flatten()
+    dnorm = abs(float(got.norm() / want.norm().clamp_min(1e-300)) - 1.0)
+    if cos < GRAD_COS or dnorm > GRAD_NORM:
+        fail("%s: gradient cosine %.6f, norm off by %.4f" % (name, cos, dnorm))
+    return cos, dnorm
+
+
+def training_phases(kt, dev, card, reset_counts, counts):
+    """Phase 4: the training path, its kernels and their gradients. Returns the
+    ``gru_stack_hs`` entry of the kernels line and what the floor kernel showed
+    on this path (launches, shape, error against its plain version, times)."""
+    from koala_tpu_torch.models import mask_gru as mask_gru_model
+    from koala_tpu_torch.models import params_io
+    from koala_tpu_torch.ops.kernels import floor, gru
+    from koala_tpu_torch.train import corpus
+    from koala_tpu_torch.train.device_sampler import sample_from_tapes
+
+    # the package re-exports the function ``train`` under the submodule's name
+    trainer = importlib.import_module("koala_tpu_torch.train.train")
+    cfg = dict(mask_gru_model.TRAIN_CONFIG)
+    speech = corpus.build_speech_tape(101, 4)
+    noise = corpus.build_noise_tape(202, 4)
+    floor_tape = corpus.build_floor_tape(303, 4)
+    print("tapes: speech %.1f s, noise %.1f s, floor %.1f s"
+          % (len(speech) / 16e3, len(noise) / 16e3, len(floor_tape) / 16e3))
+
+    # ---- main path: train_on_device from a seeded init
+    trainer.train_on_device(speech, noise, steps=2, batch=TRAIN_B, segment_frames=TRAIN_T,
+                            config=cfg, log_every=0, floor_tape=floor_tape)   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    log = io.StringIO()
+    with Recorder(mask_gru_model, "gru_stack_trainable") as rec_hs, \
+            Recorder(mask_gru_model, "floor_scan_trainable") as rec_fl, \
+            contextlib.redirect_stdout(log):
+        s = time.perf_counter()
+        trained, trained_cfg = trainer.train_on_device(
+            speech, noise, steps=TRAIN_STEPS, batch=TRAIN_B, segment_frames=TRAIN_T,
+            config=cfg, log_every=1, seed=0, floor_tape=floor_tape)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - s
+    train_counts = counts()
+    losses = [float(v) for v in re.findall(r"loss (\S+)", log.getvalue())]
+    print("path train_on_device: B=%d T=%d, %d steps, launches %s, %.3f s; loss %.4f -> %.4f"
+          % (TRAIN_B, TRAIN_T, TRAIN_STEPS, train_counts, train_s, losses[0], losses[-1]))
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        fail("train_on_device: %d losses, not all finite: %s" % (len(losses), losses))
+    if (train_counts["gru_stack_hs"], train_counts["floor_scan"]) != (TRAIN_STEPS, TRAIN_STEPS) \
+            or train_counts["gru_stack"] or train_counts["engine_fused"]:
+        fail("a train step must launch gru_stack_hs once, floor_scan once and nothing "
+             "else: %s over %d steps" % (train_counts, TRAIN_STEPS))
+    if any(p.requires_grad or not torch.isfinite(p).all() for p in trained.parameters()):
+        fail("train_on_device returned weights that are not finite and frozen")
+
+    # the trained (EMA) weights saved, loaded through the public surface, used
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trained.pv")
+        params_io.save_params(path, trained, trained_cfg)
+        tree, loaded_cfg = params_io.load_params(path)
+        if loaded_cfg["snr_bands"] != 32 or not loaded_cfg["floor_feat"]:
+            fail("saved model lost its config: %s" % loaded_cfg)
+        pool = kt.create_batch(ACCESS_KEY, batch_size=4, model_path=path, device="gpu")
+        pcm = mix_streams(40 * 256)[:4]
+        out = pool.enhance(pcm)
+        pool.delete()
+    if out.shape != pcm.shape or np.all(out == 0):
+        fail("the trained model's enhance output: shape %s" % (out.shape,))
+    print("trained model: saved, loaded by create_batch, enhanced %s samples" % (out.shape,))
+
+    # ---- one fixed batch through make_train_step: the loss falls
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    speech_d = torch.as_tensor(speech, device=dev)
+    noise_d = torch.as_tensor(noise, device=dev)
+    floor_d = torch.as_tensor(floor_tape, device=dev)
+    noisy, clean = sample_from_tapes(speech_d, noise_d, gen, TRAIN_B, TRAIN_T * 256,
+                                     floor_tape=floor_d)
+    params = mask_gru_model.init_params(gen, cfg).requires_grad_(True)
+    step = trainer.make_train_step(cfg, trainer.make_optimizer(params, 3e-4, 200))
+    reset_counts()
+    fixed = [float(step(params, noisy, clean)) for _ in range(10)]
+    fixed_counts = counts()
+    print("fixed batch, 10 steps of make_train_step: loss %.4f -> %.4f, launches %s"
+          % (fixed[0], fixed[-1], fixed_counts))
+    if not np.all(np.isfinite(fixed)) or not fixed[-1] < fixed[0]:
+        fail("the loss on one fixed batch did not fall over 10 steps: %s" % fixed)
+    if (fixed_counts["gru_stack_hs"], fixed_counts["floor_scan"]) != (10, 10):
+        fail("make_train_step launches per step: %s over 10 steps" % fixed_counts)
+
+    # ---- loss and gradients on the card against the port on the CPU
+    params.requires_grad_(False)
+    cpu_params = params_io.params_from_numpy(params_io.params_to_numpy(params), "cpu")
+    loss_fn = trainer.make_loss_fn(cfg)
+    both = {}
+    for where, p, a, b in (("card", params, noisy, clean),
+                           ("cpu", cpu_params, noisy.cpu(), clean.cpu())):
+        p.requires_grad_(True)
+        for q in p.parameters():
+            q.grad = None
+        loss = loss_fn(p, a, b)
+        loss.backward()
+        both[where] = (float(loss.detach()), [q.grad.detach().cpu() for q in p.parameters()])
+    loss_rel = abs(both["card"][0] - both["cpu"][0]) / abs(both["cpu"][0])
+    cosines = {name: cosine(g_card, g_cpu) for (name, _), g_card, g_cpu
+               in zip(params.named_parameters(), both["card"][1], both["cpu"][1])}
+    print("loss card %.5f vs CPU %.5f (rel %.2e); gradient cosines min %.6f (%s)"
+          % (both["card"][0], both["cpu"][0], loss_rel, min(cosines.values()),
+             min(cosines, key=cosines.get)))
+    if loss_rel > LOSS_REL or min(cosines.values()) < LOSS_GRAD_COS:
+        fail("loss or gradients on the card differ from the CPU: rel %.3e, cosines %s"
+             % (loss_rel, cosines))
+
+    # ---- the return_hidden kernel against the inference kernel and its plain version
+    h0, xg, wx, bx, wh, bh = (t.detach() for t in rec_hs.args)
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(11)
+    L, H = h0.shape[0], h0.shape[2]
+
+    def random_inputs(b, t_len):
+        return (torch.randn((L, b, H), generator=g2, device=dev) * 0.2,
+                (torch.randn((t_len, b, H), generator=g2, device=dev) * 0.3).bfloat16())
+
+    hs_err = 0.0
+    for label, (hh, xx) in (("main path B=%d T=%d" % (xg.shape[1], xg.shape[0]), (h0, xg)),
+                            ("recipe B=%d T=%d" % (RECIPE_B, RECIPE_T),
+                             random_inputs(RECIPE_B, RECIPE_T)),
+                            ("ragged B=40 T=24", random_inputs(40, 24))):
+        y0, hf0 = gru.gru_stack(hh, xx, wx, bx, wh, bh)
+        y1, hs1, hf1 = gru.gru_stack(hh, xx, wx, bx, wh, bh, return_hidden=True)
+        ry, rhs, rhf = gru.gru_stack_ref(hh, xx, wx, bx, wh, bh, return_hidden=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(y0, y1) and torch.equal(hf0, hf1)):
+            fail("gru_stack_hs (%s): y or h_final differ from the inference kernel's" % label)
+        if not torch.equal(hs1[-1], hf1):
+            fail("gru_stack_hs (%s): hs[-1] is not h_final" % label)
+        err = float((hs1 - rhs).abs().max())
+        db = snr_db(rhs, hs1)
+        hs_err = max(hs_err, err)
+        print("gru_stack_hs %s: y, h_final bit-identical to gru_stack; hs max|err| %.4g "
+              "(%.1f dB) against the plain version" % (label, err, db))
+        if err > GRU_MAX_ABS or db < GRU_SNR_DB:
+            fail("gru_stack_hs (%s) outside its tolerance against its plain version" % label)
+
+    # ---- gru_stack_trainable (kernel forward, plain backward) against autograd
+    #      through the plain version, on the main path's inputs
+    ct_y = (torch.randn(xg.shape, generator=g2, device=dev)).bfloat16()
+    ct_h = torch.randn(h0.shape, generator=g2, device=dev)
+
+    def gru_grads(fn):
+        ins = [t.clone().requires_grad_(True)
+               for t in (h0, xg.float(), wx.float(), bx, wh.float(), bh)]
+        y, hf = fn(ins[0], ins[1].bfloat16(), ins[2].bfloat16(), ins[3], ins[4].bfloat16(),
+                   ins[5])
+        ((y.float() * ct_y.float()).sum() + (hf * ct_h).sum()).backward()
+        return [t.grad for t in ins]
+
+    got, want = gru_grads(gru.gru_stack_trainable), gru_grads(gru.gru_stack_ref)
+    agree = {n: grad_agreement("gru_stack_trainable " + n, a, b)
+             for n, a, b in zip(("dh0", "dx", "dwx", "dbx", "dwh", "dbh"), got, want)}
+    print("gru_stack_trainable against autograd through the plain version: "
+          + ", ".join("%s cos %.6f norm %.1e" % (n, c, d) for n, (c, d) in agree.items()))
+
+    # ---- the floor kernel against its plain version on the training path's inputs
+    f0, lb, rise = rec_fl.args
+    kf, kfl = floor.floor_scan(f0, lb, rise)
+    rf, rfl = floor.floor_scan_ref(f0, lb, rise)
+    torch.cuda.synchronize()
+    floor_train = {
+        "launches": train_counts["floor_scan"], "shape": list(lb.shape),
+        "max_abs_err": max(float((kf - rf).abs().max()), float((kfl - rfl).abs().max())),
+        "ms": time_ms(lambda: floor.floor_scan(f0, lb, rise), 50),
+        "plain_ms": time_ms(lambda: floor.floor_scan_ref(f0, lb, rise), 3, 1)}
+    print("floor_scan on the training path, lb %s: %s its plain version (max|err| %.3g)"
+          % (list(lb.shape), "bit-identical to" if torch.equal(kf, rf) and torch.equal(kfl, rfl)
+             else "DIFFERS from", floor_train["max_abs_err"]))
+    if not (torch.equal(kf, rf) and torch.equal(kfl, rfl)):
+        fail("floor kernel differs from its plain version on the training path's inputs")
+
+    # ---- floor_scan_trainable against autograd through the plain version
+    ct_f = torch.randn(f0.shape, generator=g2, device=dev)
+    ct_fl = torch.randn(lb.shape, generator=g2, device=dev)
+
+    def floor_grads(fn):
+        a, b = f0.clone().requires_grad_(True), lb.clone().requires_grad_(True)
+        ff, fl = fn(a, b, rise)
+        ((ff * ct_f).sum() + (fl * ct_fl).sum()).backward()
+        return a.grad, b.grad
+
+    got_f, want_f = floor_grads(floor.floor_scan_trainable), floor_grads(floor.floor_scan_ref)
+    floor_exact = all(torch.equal(a, b) for a, b in zip(got_f, want_f))
+    print("floor_scan_trainable against autograd through the plain version: dfloor0, dlb %s"
+          % ("bit-identical" if floor_exact else "max|err| %.3g" % max(
+              float((a - b).abs().max()) for a, b in zip(got_f, want_f))))
+    if not floor_exact:
+        fail("floor_scan_trainable's gradients differ from autograd's")
+    floors = kfl
+    floor_bwd_ms = time_ms(
+        lambda: floor.floor_scan_backward(f0, lb, floors, rise, ct_f, ct_fl), 5, 1)
+
+    # ---- times of a train step and its parts, at both shapes
+    def step_times(b, t_len, reps=12):
+        p = mask_gru_model.init_params(gen, cfg).requires_grad_(True)
+        opt = trainer.make_optimizer(p, 3e-4, 1000)
+        marks = {}
+        orig_bwd = gru.gru_stack_backward
+
+        def timed_bwd(*args):
+            marks["g0"].record()
+            out = orig_bwd(*args)
+            marks["g1"].record()
+            return out
+
+        rows = []
+        gru.gru_stack_backward = timed_bwd
+        try:
+            for i in range(reps + 2):
+                for k in ("s0", "f0", "b0", "o0", "e", "g0", "g1"):
+                    marks[k] = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                w = time.perf_counter()
+                marks["s0"].record()
+                a, c = sample_from_tapes(speech_d, noise_d, gen, b, t_len * 256,
+                                         floor_tape=floor_d)
+                marks["f0"].record()
+                opt.zero_grad()
+                loss = loss_fn(p, a, c)
+                marks["b0"].record()
+                loss.backward()
+                marks["o0"].record()
+                opt.step()
+                marks["e"].record()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - w) * 1e3
+                if i >= 2:                      # two warm-up steps
+                    rows.append((wall, marks["s0"].elapsed_time(marks["f0"]),
+                                 marks["f0"].elapsed_time(marks["b0"]),
+                                 marks["b0"].elapsed_time(marks["o0"]),
+                                 marks["g0"].elapsed_time(marks["g1"]),
+                                 marks["o0"].elapsed_time(marks["e"])))
+        finally:
+            gru.gru_stack_backward = orig_bwd
+        med = [statistics.median(col) for col in zip(*rows)]
+        print("train step B=%d T=%d: %.2f ms (median of %d; sampler %.2f, forward %.2f, "
+              "backward %.2f of which GRU backward %.2f and floor backward 0 (lb takes no "
+              "gradient), optimizer %.2f), %.1f segments/s on %s"
+              % (b, t_len, med[0], len(rows), med[1], med[2], med[3], med[4], med[5],
+                 b / med[0] * 1e3, card))
+        return med
+
+    # each shape twice inside this one run (A, B, B, A): the step's host-bound
+    # parts move between runs on a shared host, so its spread is read here
+    for b, t_len in ((TRAIN_B, TRAIN_T), (RECIPE_B, RECIPE_T),
+                     (RECIPE_B, RECIPE_T), (TRAIN_B, TRAIN_T)):
+        step_times(b, t_len)
+    print("floor backward (plain) alone, lb [%d, %d, %d] taking a gradient: %.3f ms on %s"
+          % (*lb.shape, floor_bwd_ms, card))
+
+    # ---- the gru_stack_hs entry: times and bound at the main path's shapes
+    t_len, b, h = xg.shape
+    g_bound = gru_bound(t_len, b, h, L, hidden_out=True)
+    entry = {
+        "name": "gru_stack_hs", "route": "cuda", "source": "koala_tpu_torch/csrc/gru.cu",
+        "replaces": "koala_tpu/ops/pallas/gru.py:103", "variant": "return_hidden=True",
+        "launches": train_counts["gru_stack_hs"], "max_abs_err": hs_err,
+        "ms": time_ms(lambda: gru.gru_stack(h0, xg, wx, bx, wh, bh, return_hidden=True), 10, 2),
+        "plain_ms": time_ms(lambda: gru.gru_stack_ref(h0, xg, wx, bx, wh, bh,
+                                                      return_hidden=True), 2, 1),
+        "bound_ms": max(g_bound.values()), "bound_by": max(g_bound, key=g_bound.get),
+        "library_ms": time_ms(cudnn_gru_yardstick(xg, h0, training=True), 10),
+        "shape": [t_len, b, h, L]}
+    hr, xr = random_inputs(RECIPE_B, RECIPE_T)
+    r_bound = gru_bound(RECIPE_T, RECIPE_B, h, L, hidden_out=True)
+    print("gru_stack_hs at B=%d T=%d: %.3f ms (inference variant %.3f ms), bound_ms %.4f "
+          "(%s) on %s"
+          % (RECIPE_B, RECIPE_T,
+             time_ms(lambda: gru.gru_stack(hr, xr, wx, bx, wh, bh, return_hidden=True), 5, 1),
+             time_ms(lambda: gru.gru_stack(hr, xr, wx, bx, wh, bh), 5, 1),
+             max(r_bound.values()), max(r_bound, key=r_bound.get), card))
+    ct_yr = torch.randn(xr.shape, generator=g2, device=dev).bfloat16()
+    _, hsr, _ = gru.gru_stack(hr, xr, wx, bx, wh, bh, return_hidden=True)
+    for label, args in (("B=%d T=%d" % (b, t_len), (h0, xg, wx, bx, wh, bh,
+                                                   gru.gru_stack(h0, xg, wx, bx, wh, bh,
+                                                                 return_hidden=True)[1],
+                                                   ct_y, ct_h)),
+                        ("B=%d T=%d" % (RECIPE_B, RECIPE_T),
+                         (hr, xr, wx, bx, wh, bh, hsr, ct_yr, torch.zeros_like(hr)))):
+        print("GRU backward (plain) at %s: %.2f ms on %s"
+              % (label, time_ms(lambda: gru.gru_stack_backward(*args), 3, 1), card))
+    return entry, floor_train
 
 
 def main() -> None:
@@ -167,14 +532,15 @@ def main() -> None:
     print("build: %.2f s (%s)" % (time.perf_counter() - t0, os.path.basename(lib_path)))
     print("card: %s" % card, flush=True)
 
-    counters = {"floor_scan": floor, "gru_stack": gru, "engine_fused": engine_fused}
+    counters = {"floor_scan": (floor, "launches"), "gru_stack": (gru, "launches"),
+                "gru_stack_hs": (gru, "launches_hs"), "engine_fused": (engine_fused, "launches")}
 
     def reset_counts():
-        for m in counters.values():
-            m.launches = 0
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
 
     def counts():
-        return {k: m.launches for k, m in counters.items()}
+        return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
 
     # ---- 2. main path through the public surface
     n_chunk = T * 256
@@ -312,26 +678,8 @@ def main() -> None:
         fail("GRU kernel outside its tolerance against its plain version")
     t_len, b, h = xg.shape
     L = h0.shape[0]
-    g_bytes = (2 * t_len * b * h * 2 + 2 * L * b * h * 4
-               + 2 * L * h * 3 * h * 2 + 2 * L * 3 * h * 4)
-    g_mm = t_len * L * 2 * (2 * b * h * 3 * h)           # bf16 tensor-core flops
-    g_ew = t_len * L * b * h * 16 + t_len * L * b * 3 * h * 2   # f32 gate math, bias adds
-    # tensor cores and CUDA cores run side by side: the slower of the two bounds
-    g_bound = {"bytes": g_bytes / HBM_BYTES_PER_S * 1e3,
-               "operations": max(g_mm / BF16_TENSOR_FLOPS, g_ew / F32_FLOPS) * 1e3}
-    # yardstick: two cuDNN GRU layers in bf16 with residual adds (gate order
-    # r, z, n there; the same work, not the same function of these weights)
-    lib_gru = [torch.nn.GRU(h, h).to(dev, torch.bfloat16) for _ in range(L)]
-    for m in lib_gru:
-        m.flatten_parameters()
-
-    def library_gru():
-        xx = xg
-        for layer_i, m in enumerate(lib_gru):
-            yy, _ = m(xx, h0[layer_i:layer_i + 1].bfloat16())
-            xx = xx + yy
-        return xx
-
+    g_bound = gru_bound(t_len, b, h, L, hidden_out=False)
+    library_gru = cudnn_gru_yardstick(xg, h0, training=False)
     with torch.inference_mode():
         lib_ms = time_ms(library_gru, 10)
     kernels.append({
@@ -394,7 +742,18 @@ def main() -> None:
         "bound_ms": max(f_bound.values()), "bound_by": max(f_bound, key=f_bound.get),
         "library_ms": None, "shape": [b, t_len, 256]})
 
-    # ---- 4. end-to-end numbers of this run
+    # ---- 4. the training path, its kernel variant and its gradients
+    hs_entry, floor_train = training_phases(kt, dev, card, reset_counts, counts)
+    kernels.insert(2, hs_entry)
+    # the floor kernel runs on two paths: the entry's own numbers are those of
+    # process_chunk's shape, the training path's stand beside them
+    kernels[0]["launches"] += floor_train["launches"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], floor_train["max_abs_err"])
+    kernels[0]["launches_by_path"] = {"process_chunk": launches["floor_scan"],
+                                      "train_on_device": floor_train["launches"]}
+    kernels[0]["train_path"] = floor_train
+
+    # ---- 5. end-to-end numbers of this run
     kb.reset()
     torch.cuda.synchronize()
     s = time.perf_counter()
@@ -409,10 +768,13 @@ def main() -> None:
     print("process: per-frame p50 %.3f ms, p90 %.3f ms over %d frames on %s"
           % (np.percentile(lat_ms, 50), np.percentile(lat_ms, 90), len(lat_ms), card))
     for kr in kernels:
-        print("kernel %-12s ms %.4f plain_ms %.4f library_ms %s bound_ms %.4f (%s) launches %d"
-              % (kr["name"], kr["ms"], kr["plain_ms"],
-                 "%.4f" % kr["library_ms"] if kr["library_ms"] is not None else "null",
-                 kr["bound_ms"], kr["bound_by"], kr["launches"]))
+        print("kernel %-13s ms %.4f plain_ms %.4f library_ms %s bound_ms %.4f (%s) launches %d "
+              "on %s" % (kr["name"], kr["ms"], kr["plain_ms"],
+                         "%.4f" % kr["library_ms"] if kr["library_ms"] is not None else "null",
+                         kr["bound_ms"], kr["bound_by"], kr["launches"], card))
+    print("kernel floor_scan on the training path, lb %s: ms %.4f plain_ms %.4f max|err| %g "
+          "launches %d on %s" % (floor_train["shape"], floor_train["ms"], floor_train["plain_ms"],
+                                 floor_train["max_abs_err"], floor_train["launches"], card))
     k.delete()
     kb.delete()
 

@@ -20,6 +20,14 @@ branch follows the tensor's device: CUDA takes the kernels, the CPU the scan
 (as the JAX package on its CPU backend). ``use_pallas=True`` forces the
 kernel branch (on the CPU through the kernels' plain versions), ``False``
 the scan.
+
+Training: parameters are created frozen (inference never builds a graph);
+a trainer calls ``requires_grad_(True)`` on the module. Under grad mode the
+weights are then rounded live instead of through the detached cache, the
+stacked GRU operands are built live so that their gradient reaches every
+layer, and the kernel branch runs the differentiable wrappers
+(``floor_scan_trainable``, ``gru_stack_trainable``). The scan branch is
+plain autograd.
 """
 
 from __future__ import annotations
@@ -34,8 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..constants import NUM_BINS
-from ..ops.kernels.floor import floor_scan, floor_scan_ref
-from ..ops.kernels.gru import gru_stack
+from ..ops.kernels.floor import floor_scan, floor_scan_ref, floor_scan_trainable
+from ..ops.kernels.gru import gru_stack, gru_stack_trainable
 
 logger = logging.getLogger("koala_tpu_torch")
 
@@ -94,7 +102,41 @@ def normalize_config(config: Dict[str, Any], params=None) -> Dict[str, Any]:
 
 
 def _param(a) -> nn.Parameter:
+    if isinstance(a, torch.Tensor):
+        return nn.Parameter(a.detach().float().clone(), requires_grad=False)
     return nn.Parameter(torch.tensor(np.asarray(a, np.float32)), requires_grad=False)
+
+
+def init_params(generator: torch.Generator, config: Dict[str, Any] = None) -> "MaskGRU":
+    """Fresh weights on the generator's device: uniform +-1/sqrt(fan_in),
+    zero biases, the decoder bias at +3 (an untrained model is a
+    near-passthrough), the gate closed (w = 0, b = -2). Same distribution as
+    the JAX package's ``init_params``, not the same numbers."""
+    cfg = dict(DEFAULT_CONFIG, **(config or {}))
+    h, layers, bins = cfg["hidden"], cfg["num_layers"], cfg["bins"]
+    dev = generator.device
+
+    def uniform(fan_in, fan_out):
+        scale = 1.0 / np.sqrt(fan_in)
+        return (torch.rand((fan_in, fan_out), generator=generator, device=dev) * 2.0 - 1.0) * scale
+
+    def zeros(n, fill=0.0):
+        return torch.full((n,), fill, device=dev)
+
+    tree = {
+        "enc": {"w": uniform(expected_enc_in(cfg), h), "b": zeros(h)},
+        "gru": [{"wx": uniform(h, 3 * h), "wh": uniform(h, 3 * h),
+                 "bx": zeros(3 * h), "bh": zeros(3 * h)} for _ in range(layers)],
+        "dec": {"w": uniform(h, bins), "b": zeros(bins, 3.0)},
+        "gate": {"w": torch.zeros((h, 1), device=dev), "b": zeros(1, -2.0)},
+    }
+    return MaskGRU(tree)
+
+
+def _records_graph(*sources: torch.Tensor) -> bool:
+    """The one test of "derive live or from the cache": grad mode is on and
+    one of the tensors the result is derived from takes a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in sources)
 
 
 class Dense(nn.Module):
@@ -135,26 +177,41 @@ class MaskGRU(nn.Module):
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         hit = self._derived.get(name)
         if hit is None or hit[0] != key:
-            hit = (key, build())
+            # a plain tensor without a graph: usable in a graph recorded later
+            # (inference_mode(False) alone would switch grad mode on)
+            with torch.inference_mode(False), torch.no_grad():
+                hit = (key, build())
             self._derived[name] = hit
         return hit[1]
 
     def rounded(self, name: str, cfg) -> torch.Tensor:
         """Weight ``name`` (a dotted state_dict key) rounded to the compute
-        dtype, held as float32 (the right operand of ``_mm``)."""
+        dtype, held as float32 (the right operand of ``_mm``). Cached for
+        inference; rounded live when a graph is recorded (the gradient passes
+        through the cast)."""
         w = self.get_parameter(name)
         if cfg.get("compute_dtype") != "bfloat16":
             return w
+        if _records_graph(w):
+            return w.bfloat16().float()
         return self.derived("round:" + name, lambda: w.detach().bfloat16().float())
+
+    def training_graph(self) -> bool:
+        """True when a forward pass must record a graph to the weights."""
+        return _records_graph(*self.parameters())
 
     def gru_stacked(self):
         """(wx, bx, wh, bh) stacked over layers: [L,H,3H] bf16 and [L,3H] f32,
-        the GRU kernel's operands."""
+        the GRU kernel's operands. Cached for inference; built live when a
+        graph is recorded (a cached tensor would carry one optimizer step's
+        graph into the next)."""
         def build():
             return (torch.stack([l.wx for l in self.gru]).bfloat16().contiguous(),
                     torch.stack([l.bx for l in self.gru]).contiguous(),
                     torch.stack([l.wh for l in self.gru]).bfloat16().contiguous(),
                     torch.stack([l.bh for l in self.gru]).contiguous())
+        if _records_graph(*self.gru.parameters()):
+            return build()
         return self.derived("gru_stacked", build)
 
 
@@ -207,9 +264,12 @@ def _cep_matrix_np(bins: int, nb: int):
 
 @functools.lru_cache(maxsize=16)
 def _constant_on(name: str, bins: int, nb: int, device: torch.device):
-    if name == "band":
-        return torch.as_tensor(_band_matrix_np(bins, nb), device=device)
-    return torch.as_tensor(_cep_matrix_np(bins, nb)[0], device=device)
+    # made outside inference mode, so that a constant first asked for by a
+    # serving call can enter a graph that a trainer records later
+    with torch.inference_mode(False):
+        if name == "band":
+            return torch.as_tensor(_band_matrix_np(bins, nb), device=device)
+        return torch.as_tensor(_cep_matrix_np(bins, nb)[0], device=device)
 
 
 def cep_features(re, im, cfg):
@@ -354,7 +414,8 @@ def apply_sequence(params: MaskGRU, state, re, im, config: Dict[str, Any] = None
         t_ax = lb.dim() - 2
         lb_t = lb.movedim(t_ax, 0)                              # [T, *, nb]
         if _kernel_branch(cfg, lb_t) and lb_t.dim() == 3:
-            floor_final, floors = floor_scan(
+            scan = floor_scan_trainable if params.training_graph() else floor_scan
+            floor_final, floors = scan(
                 state["floor"].contiguous(), lb_t.contiguous(), float(cfg["floor_rise"]))
         else:
             floor_final, floors = floor_scan_ref(state["floor"], lb_t, cfg["floor_rise"])
@@ -367,7 +428,8 @@ def apply_sequence(params: MaskGRU, state, re, im, config: Dict[str, Any] = None
 
     if _gru_kernel_enabled(cfg, x):
         wx, bx, wh, bh = params.gru_stacked()
-        y, h_final = gru_stack(
+        stack = gru_stack_trainable if params.training_graph() else gru_stack
+        y, h_final = stack(
             state.movedim(1, 0).contiguous(),                   # [L, B, H]
             x.movedim(1, 0).bfloat16().contiguous(),            # [T, B, H]
             wx, bx, wh, bh)
@@ -397,6 +459,6 @@ def apply_sequence(params: MaskGRU, state, re, im, config: Dict[str, Any] = None
 
 __all__ = [
     "DEFAULT_CONFIG", "TRAIN_CONFIG", "normalize_config", "expected_enc_in",
-    "MaskGRU", "init_state", "step", "apply_sequence", "features",
+    "MaskGRU", "init_params", "init_state", "step", "apply_sequence", "features",
     "band_log_energy", "cep_features",
 ]

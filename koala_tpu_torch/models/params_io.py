@@ -8,7 +8,8 @@ both packages load one file:
   back as float32.
 
 ``params_from_numpy`` turns a parameter tree of numpy arrays (from
-``load_params`` or exported from the JAX package) into the port's module;
+``load_params`` or exported from the JAX package) into the port's module,
+``params_to_numpy`` turns the module back into that tree;
 ``state_from_numpy`` / ``state_to_numpy`` carry engine state the same way.
 """
 
@@ -62,8 +63,10 @@ def _unflatten(flat: Dict[str, np.ndarray]):
     return listify(root)
 
 
-def _as_tree(params):
-    """A parameter module or a tree -> tree of numpy arrays."""
+def params_to_numpy(params):
+    """A parameter module -> tree of numpy arrays (the inverse of
+    ``params_from_numpy``; the layout both packages save and load). A tree is
+    passed through."""
     if isinstance(params, torch.nn.Module):
         return _unflatten({k.replace(".", "/"): v.detach().cpu().numpy()
                            for k, v in params.state_dict().items()})
@@ -72,7 +75,7 @@ def _as_tree(params):
 
 def save_params(path: str, params, config: Dict[str, Any]) -> None:
     """Write a parameter module or tree with its fully resolved config."""
-    tree = _as_tree(params)
+    tree = params_to_numpy(params)
     if (config or {}).get("kind", "mask_gru") == "mask_gru":
         from . import mask_gru
         config = mask_gru.normalize_config(config, tree)
@@ -161,4 +164,4 @@ def state_to_numpy(tree):
 
 
 __all__ = ["save_params", "load_params", "default_model_path",
-           "params_from_numpy", "state_from_numpy", "state_to_numpy"]
+           "params_from_numpy", "params_to_numpy", "state_from_numpy", "state_to_numpy"]

@@ -10,6 +10,11 @@ one add and one min per element). The kernel (csrc/floor.cu) gives each
 (b, band) column one thread that carries the floor in a register over T, so
 the recurrence itself moves no bytes. It is bit-identical to
 ``floor_scan_ref``.
+
+``floor_scan_trainable`` is the differentiable form: the same forward, and
+as backward the analytic reverse pass of the JAX package's
+``floor_scan_trainable`` (ops/pallas/floor.py:105-122), which is plain code
+there too, not a kernel.
 """
 
 from __future__ import annotations
@@ -57,4 +62,45 @@ def floor_scan(floor0: torch.Tensor, lb: torch.Tensor, rise: float):
     return floor_final, floors
 
 
-__all__ = ["floor_scan", "floor_scan_ref"]
+def floor_scan_backward(floor0, lb, floors, rise: float, ct_final, ct_floors):
+    """Reverse pass of the tracker: the recurrence is piecewise linear, so it
+    needs only which branch of the min each step took, read off the stored
+    floors. A tie goes to the first argument (the rise branch), as the JAX
+    package's backward has it. -> (dfloor0 [B, nb], dlb [T, B, nb])."""
+    f_prev = torch.cat([floor0.unsqueeze(0), floors[:-1]], dim=0)
+    took_rise = ((f_prev + rise) <= lb).to(ct_floors.dtype)
+    g = ct_floors.clone()
+    if g.shape[0]:
+        g[-1] += ct_final
+    a = torch.zeros_like(floor0)
+    dlb = torch.empty_like(lb)
+    for t in range(lb.shape[0] - 1, -1, -1):
+        tot = g[t] + a
+        a = tot * took_rise[t]
+        dlb[t] = tot * (1.0 - took_rise[t])
+    return (a if lb.shape[0] else ct_final), dlb
+
+
+class _FloorScanTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, floor0, lb, rise):
+        floor_final, floors = floor_scan(floor0, lb, rise)
+        ctx.save_for_backward(floor0, lb, floors)
+        ctx.rise = rise
+        return floor_final, floors
+
+    @staticmethod
+    def backward(ctx, ct_final, ct_floors):
+        floor0, lb, floors = ctx.saved_tensors
+        dfloor0, dlb = floor_scan_backward(floor0, lb, floors, ctx.rise, ct_final, ct_floors)
+        return dfloor0, dlb, None
+
+
+def floor_scan_trainable(floor0: torch.Tensor, lb: torch.Tensor, rise: float):
+    """Differentiable ``floor_scan``: forward is the kernel (the plain version
+    for CPU tensors), backward ``floor_scan_backward``. ``rise`` takes no
+    gradient."""
+    return _FloorScanTrainable.apply(floor0, lb, rise)
+
+
+__all__ = ["floor_scan", "floor_scan_ref", "floor_scan_trainable", "floor_scan_backward"]

@@ -83,8 +83,11 @@ def _bases_on(fft_size: int, windowed: bool, device: torch.device):
         arrays = (fwd[:, :k], fwd[:, k:], inv_re, inv_im)
     else:
         arrays = _numpy_basis(fft_size)
-    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
-                 for a in arrays)
+    # made outside inference mode: a cached basis first asked for by a serving
+    # call must still be usable in a graph that a trainer records later
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                     for a in arrays)
 
 
 def analysis_window(fft_size: int = FFT_SIZE, device="cpu") -> torch.Tensor:

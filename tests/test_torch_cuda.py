@@ -12,7 +12,7 @@ import torch
 
 import koala_tpu_torch
 from koala_tpu_torch.engine.core import make_engine
-from koala_tpu_torch.models import params_io
+from koala_tpu_torch.models import mask_gru, params_io
 from koala_tpu_torch.ops.kernels import engine_fused, floor, gru
 
 from torch_ref import ACCESS_KEY, cuda_device, snr_db  # noqa: F401  (fixture)
@@ -61,6 +61,60 @@ def test_gru_kernel_matches_plain(cuda_device, bundled):
     assert gru.launches == before + 1
     assert (y.float() - yr.float()).abs().max().item() <= GRU_ATOL
     assert (hf - hr).abs().max().item() <= GRU_ATOL
+
+
+@pytest.mark.cuda
+def test_gru_hidden_kernel_matches_plain(cuda_device, bundled):
+    """The training variant at a ragged B = 40: y and h_final bit-identical
+    to the inference variant's, hs within the GRU tolerance of the plain
+    version and ending in h_final."""
+    params = params_io.params_from_numpy(bundled[0], cuda_device)
+    wx, bx, wh, bh = params.gru_stacked()
+    x = _randn(1, (24, 40, 384), 0.3, cuda_device).bfloat16()
+    h0 = _randn(2, (2, 40, 384), 0.2, cuda_device)
+    y0, hf0 = gru.gru_stack(h0, x, wx, bx, wh, bh)
+    before = (gru.launches, gru.launches_hs)
+    y, hs, hf = gru.gru_stack(h0, x, wx, bx, wh, bh, return_hidden=True)
+    _, hsr, _ = gru.gru_stack_ref(h0, x, wx, bx, wh, bh, return_hidden=True)
+    torch.cuda.synchronize()
+    assert (gru.launches, gru.launches_hs) == (before[0], before[1] + 1)
+    assert hs.shape == (24, 2, 40, 384)
+    assert torch.equal(y, y0) and torch.equal(hf, hf0) and torch.equal(hs[-1], hf)
+    assert (hs - hsr).abs().max().item() <= GRU_ATOL
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One loss and backward pass of the trainer at full width (B = 16,
+    T = 24) on the card (kernel forward, plain backward) against the port on
+    the CPU (scan branch): loss within 1e-3 relative, every leaf's gradient
+    at cosine >= 0.99 (bf16 sums in another order on the two devices)."""
+    from koala_tpu_torch.train.train import make_loss_fn
+
+    cfg = dict(mask_gru.TRAIN_CONFIG)
+    gen = torch.Generator().manual_seed(0)
+    cpu_params = mask_gru.init_params(gen, cfg).requires_grad_(True)
+    card_params = params_io.params_from_numpy(
+        params_io.params_to_numpy(cpu_params), cuda_device).requires_grad_(True)
+    rng = np.random.default_rng(5)
+    t = np.arange(24 * 256) / 16000.0
+    clean = np.stack([0.2 * np.sin(2 * np.pi * (200 + 30 * i) * t) * (1 + np.sin(9 * t))
+                      for i in range(16)]).astype(np.float32)
+    noisy = (clean + rng.standard_normal(clean.shape) * 0.03).astype(np.float32)
+    loss_fn = make_loss_fn(cfg)
+    before = (gru.launches_hs, floor.launches, engine_fused.launches)
+    card = loss_fn(card_params, torch.as_tensor(noisy, device=cuda_device),
+                   torch.as_tensor(clean, device=cuda_device))
+    card.backward()
+    torch.cuda.synchronize()
+    assert (gru.launches_hs - before[0], floor.launches - before[1],
+            engine_fused.launches - before[2]) == (1, 1, 0)
+    cpu = loss_fn(cpu_params, torch.as_tensor(noisy), torch.as_tensor(clean))
+    cpu.backward()
+    assert abs(card.item() - cpu.item()) <= 1e-3 * abs(cpu.item())
+    for (name, a), b in zip(card_params.named_parameters(), cpu_params.parameters()):
+        ga, gb = a.grad.cpu().double().ravel(), b.grad.double().ravel()
+        assert torch.dot(ga, gb) / (ga.norm() * gb.norm()) >= 0.99, name
 
 
 @pytest.mark.cuda

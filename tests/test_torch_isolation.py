@@ -1,5 +1,5 @@
-"""koala_tpu_torch stands alone: it imports neither jax nor koala_tpu, and
-its entry points never carry on on the CPU when a card was asked for."""
+"""koala_tpu_torch stands alone: it imports neither jax, optax nor koala_tpu,
+and its entry points never carry on on the CPU when a card was asked for."""
 
 import os
 import re
@@ -29,20 +29,56 @@ def test_import_leaves_no_jax_or_koala_tpu():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_source_names_no_jax_or_koala_tpu():
-    """No ``import jax`` and no ``koala_tpu`` other than ``koala_tpu_torch``
-    anywhere in the package's sources (Python and CUDA)."""
-    bad = []
+TRAIN_MODULES = ["corpus", "data", "device_sampler", "evaluate", "fwsnrseg", "pseudo_real",
+                 "stoi", "train"]
+TRAIN_SCRIPT = os.path.join(ROOT, "scripts", "train_model_torch.py")
+
+
+@pytest.mark.parametrize("module", TRAIN_MODULES)
+def test_train_module_import_leaves_no_jax_optax_or_koala_tpu(module):
+    code = ("import sys, importlib; importlib.import_module('koala_tpu_torch.train.%s'); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', "
+            "'koala_tpu')]; print(bad); sys.exit(1 if bad else 0)" % module)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_train_script_imports_no_jax_optax_or_koala_tpu():
+    """Loading the training script and the modules its functions import pulls
+    in none of the three (its help text runs the argument parser only)."""
+    code = ("import sys, runpy; sys.argv = ['train_model_torch.py', '--help']\n"
+            "try:\n    runpy.run_path(%r, run_name='__main__')\n"
+            "except SystemExit:\n    pass\n"
+            "import koala_tpu_torch.train.train, koala_tpu_torch.train.evaluate\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', "
+            "'koala_tpu')]; print(bad); sys.exit(1 if bad else 0)" % TRAIN_SCRIPT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "--segment-frames" in r.stdout and "--allow-known-gaps" in r.stdout
+
+
+def _package_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
-            if not f.endswith((".py", ".cu", ".cuh")):
-                continue
-            path = os.path.join(dirpath, f)
-            with open(path) as fh:
-                for i, line in enumerate(fh, 1):
-                    if (re.search(r"\bimport\s+jax\b|\bfrom\s+jax\b", line)
-                            or re.search(r"\bkoala_tpu(?!_torch)\b", line)):
-                        bad.append("%s:%d %s" % (path, i, line.strip()))
+            if f.endswith((".py", ".cu", ".cuh")):
+                yield os.path.join(dirpath, f)
+
+
+def test_source_names_no_jax_or_koala_tpu():
+    """No ``import jax`` or ``import optax`` and no ``koala_tpu`` other than
+    ``koala_tpu_torch`` anywhere in the package's sources (Python and CUDA)
+    nor in the training script."""
+    bad = []
+    paths = list(_package_sources()) + [TRAIN_SCRIPT]
+    assert all(os.path.join(PKG, "train", m + ".py") in paths for m in TRAIN_MODULES)
+    for path in paths:
+        with open(path) as fh:
+            for i, line in enumerate(fh, 1):
+                if (re.search(r"\b(import|from)\s+(jax|optax)\b", line)
+                        or re.search(r"\bkoala_tpu(?!_torch)\b", line)):
+                    bad.append("%s:%d %s" % (path, i, line.strip()))
     assert not bad, bad
 
 

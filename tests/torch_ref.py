@@ -34,6 +34,29 @@ def to_numpy(tree):
         else np.asarray(tree)
 
 
+def flat_tree(tree, prefix=""):
+    """A JAX-layout tree (parameters or their gradients) -> {name: float64
+    numpy array} under the port's ``named_parameters`` names (``gru.0.wx``),
+    so both packages' leaves pair up by name."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flat_tree(v, "%s%s." % (prefix, k)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flat_tree(v, "%s%d." % (prefix, i)))
+    else:
+        out[prefix[:-1]] = np.asarray(tree, np.float64)
+    return out
+
+
+def rel_err(ref, x):
+    """|x - ref| / |ref| in the 2-norm, float64."""
+    ref = np.asarray(ref, np.float64)
+    return float(np.linalg.norm(np.asarray(x, np.float64) - ref)
+                 / max(np.linalg.norm(ref), 1e-30))
+
+
 def snr_db(ref, x):
     ref = np.asarray(ref, np.float64)
     err = np.asarray(x, np.float64) - ref
