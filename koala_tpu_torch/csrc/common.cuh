@@ -1,9 +1,12 @@
-// Device helpers shared by the GRU-stack kernel and the fused engine kernel.
+// Device helpers of the 16-row tiling: the fused engine kernel
+// (engine_fused.cu) is built from them. The GRU-stack kernel (gru.cu) is a
+// persistent column-split grid built from resident.cuh and takes only the
+// types and align128 from here.
 //
-// Both kernels give one thread block a tile of ROWS = 16 stream rows for the
-// whole T loop (streams never interact), keep that tile's activations and
-// state in shared memory, and run every product on the tensor cores through
-// the warp-level WMMA interface: A = activations as bf16 in shared memory,
+// The fused kernel gives one thread block a tile of ROWS = 16 stream rows for
+// the whole T loop (streams never interact), keeps that tile's activations
+// and state in shared memory, and runs every product on the tensor cores
+// through the warp-level WMMA interface: A = activations as bf16 in shared memory,
 // B = weights as bf16 read from device memory (they stay resident in the
 // 50 MB L2 across the T loop), f32 accumulators. That is the numerics of the
 // JAX package's compute_dtype=bfloat16 products: both operands rounded to

@@ -18,17 +18,27 @@ plain reverse scan too, not a kernel). The card's training variant writes
 inference variant, so, unlike the TPU's shape gate, there is no branch that
 falls back from the kernel to the scan for training.
 
-On this card the least time is set by the bf16 products (operations); what
-limits this first design is that each block reads the 2L weight matrices
-(3.5 MB bf16 at H = 384, L = 2) from L2 once per step. The kernel (csrc/gru.cu) gives
-one block 16 stream rows for the whole T x L loop, keeps their hidden state
-in shared memory and runs the products on the tensor cores with the weights
-read from L2 (see the source's note).
+On this card the least time is set by the bf16 products (operations), but a
+recurrence cannot reach it: its steps depend on each other. The kernel
+(csrc/gru.cu) is one cooperative launch of a persistent grid that is
+weight-stationary and column-split: a block owns ``slice_width`` hidden
+units of every layer and gathers their gate columns of wx and wh once, as
+tensor-core fragments in its warps' registers, where they stay for all T.
+It holds the f32 state and residual stream of its slice in shared memory,
+publishes only bf16 activations to the other blocks through a small exchange
+buffer that stays in L2, and meets them at one barrier per tick of a
+wavefront over the layers (layer l works on step k - l in tick k: T + L - 1
+ticks). Rows are cut into chunks that run side by side as row groups of the
+one grid, or one after the other where the card cannot hold them all.
+``plan_launch`` decides all of that from the shapes alone (see the source's
+note for the rest).
 
 Weights come stacked: wx, wh [L, H, 3H] bf16 and bx, bh [L, 3H] f32.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -84,6 +94,141 @@ def gru_stack_ref(h0, x, wx, bx, wh, bh, return_hidden: bool = False):
     return y, (torch.stack(hs) if hs else h.new_zeros((0,) + tuple(h.shape))), h
 
 
+# What one H100 offers a block (the plan's defaults; on a card the wrapper
+# asks the device for its own SM count).
+H100_SMS = 132
+H100_SMEM_BYTES = 232448
+WARPS = 16                     # csrc/gru.cu GRU_WARPS (512 threads)
+UNIT_K_TILES = 12              # k tiles of weights that a warp's registers hold
+MAX_CHUNK_ROWS = 64
+# Slice widths in the order they are tried: the first whose units fit a
+# block's warps and registers and whose 16-row tile fits its shared memory.
+# The wider slice halves what the blocks read of each other; on the H100 it
+# was the faster one at every shape timed.
+SLICE_WIDTHS = (16, 8)
+
+
+def _align128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class GruPlan:
+    """How one ``gru_stack`` launch is laid over the card."""
+    slice_width: int        # hidden units of every layer that a block owns
+    slices: int             # blocks of a row group: hidden / slice_width
+    chunk_rows: int         # rows of a chunk, a multiple of 16
+    chunks: int             # row chunks covering the batch
+    groups: int             # row chunks in flight at once, each on its own blocks
+    passes: int             # chunks that the busiest group walks through
+    blocks: int             # groups * slices, all resident at once
+    k_splits: int           # k ranges per product half that warps share
+    smem_bytes: int         # shared memory of one block
+    exchange_elems: int     # bf16 elements of the exchange buffer
+    layers: int
+
+    def barriers(self, t_len: int) -> int:
+        """Grid barriers that the busiest row group passes in one launch: one
+        to publish a chunk's state, one between two of its T + L - 1 ticks."""
+        return self.passes * (1 + max(0, t_len + self.layers - 2))
+
+    def chunk_range(self, chunk: int, batch: int):
+        """Rows [start, stop) of ``batch`` that ``chunk`` owns."""
+        start = chunk * self.chunk_rows
+        return start, min(batch, start + self.chunk_rows)
+
+    def slice_range(self, j: int):
+        """Hidden units [start, stop) that block ``j`` of a group owns."""
+        return j * self.slice_width, (j + 1) * self.slice_width
+
+    def group_chunks(self, group: int):
+        """The chunks that row group ``group`` walks through, in order."""
+        return list(range(group, self.chunks, self.groups))
+
+
+def k_splits(hidden: int, layers: int, slice_width: int) -> int:
+    """csrc/gru.cu gru_k_splits: k ranges per product half, short enough for
+    a warp's registers and enough of them to give every warp a unit."""
+    k_tiles = hidden // 16
+    return min(k_tiles, max(_ceil_div(k_tiles, UNIT_K_TILES),
+                            WARPS // (layers * (slice_width // 8) * 2)))
+
+
+def units(hidden: int, layers: int, slice_width: int) -> int:
+    """csrc/gru.cu gru_units: (layer, 8-unit tile, half, k range) units of a
+    block; each is one warp's, with its weights in that warp's registers."""
+    return layers * (slice_width // 8) * 2 * k_splits(hidden, layers, slice_width)
+
+
+def fits_registers(hidden: int, layers: int, slice_width: int) -> bool:
+    """Whether every unit finds a warp and its weights that warp's registers."""
+    splits = k_splits(hidden, layers, slice_width)
+    return (units(hidden, layers, slice_width) <= WARPS
+            and _ceil_div(hidden // 16, splits) <= UNIT_K_TILES)
+
+
+def smem_bytes(hidden: int, layers: int, slice_width: int, chunk_rows: int) -> int:
+    """csrc/gru.cu gru_smem_layout: biases, 2L operand buffers of padded
+    rows, the units' partial sums, the f32 state, two copies of the f32
+    residual stream, the tile table."""
+    tiles = (chunk_rows // 16) * (slice_width // 8)
+    return (_align128(layers * 6 * slice_width * 4)
+            + _align128(2 * layers * chunk_rows * (hidden + 8) * 2)
+            + _align128(layers * tiles * 2 * k_splits(hidden, layers, slice_width) * 384 * 4)
+            + _align128(layers * tiles * 128 * 4)
+            + _align128(2 * layers * tiles * 128 * 4)
+            + _align128(layers * tiles * 2 * 4))
+
+
+def plan_launch(batch: int, hidden: int, layers: int, sms: int = H100_SMS,
+                smem_limit: int = H100_SMEM_BYTES) -> GruPlan:
+    """Lay a [batch, hidden] x ``layers`` recurrence over ``sms`` SMs of
+    ``smem_limit`` bytes each (one block per SM). The slice width is the
+    first of SLICE_WIDTHS that fits; rows are spread over as many row groups as the card holds
+    beside each other, in chunks as large as shared memory takes (at most
+    MAX_CHUNK_ROWS), and what is left over goes through further passes.
+    Any batch fits. A width and depth fit while a block's 16 warps can hold
+    its weights (12 k tiles each): hidden up to 1056 at one layer, 768 at
+    two, 384 at three or four, 192 up to eight layers; beyond that the call
+    raises ValueError."""
+    if batch < 1 or layers < 1 or hidden < 16 or hidden % 16:
+        raise ValueError("gru_stack: batch %d, hidden %d (a multiple of 16), layers %d"
+                         % (batch, hidden, layers))
+    for width in SLICE_WIDTHS:
+        slices = hidden // width
+        if (slices > sms or not fits_registers(hidden, layers, width)
+                or smem_bytes(hidden, layers, width, 16) > smem_limit):
+            continue
+        side_by_side = sms // slices
+        rows = min(MAX_CHUNK_ROWS, 16 * _ceil_div(_ceil_div(batch, 16), side_by_side))
+        while smem_bytes(hidden, layers, width, rows) > smem_limit:
+            rows -= 16
+        # even the chunks out: no more rows a chunk than that many chunks need
+        rows = 16 * _ceil_div(_ceil_div(batch, _ceil_div(batch, rows)), 16)
+        chunks = _ceil_div(batch, rows)
+        groups = min(side_by_side, chunks)
+        return GruPlan(
+            slice_width=width, slices=slices, chunk_rows=rows, chunks=chunks, groups=groups,
+            passes=_ceil_div(chunks, groups), blocks=groups * slices,
+            k_splits=k_splits(hidden, layers, width),
+            smem_bytes=smem_bytes(hidden, layers, width, rows),
+            exchange_elems=chunks * (4 * layers - 2) * rows * hidden,
+            layers=layers)
+    raise ValueError("gru_stack: hidden %d x %d layers fits no block's registers and "
+                     "shared memory (%d bytes) at any slice width"
+                     % (hidden, layers, smem_limit))
+
+
+def plan_for(x, layers: int) -> GruPlan:
+    """The plan of a launch on x [T, B, H] (a CUDA tensor), for its card."""
+    props = torch.cuda.get_device_properties(x.device)
+    return plan_launch(x.shape[1], x.shape[2], layers, sms=props.multi_processor_count)
+
+
 def gru_stack(h0, x, wx, bx, wh, bh, return_hidden: bool = False):
     """Run the L-layer GRU recurrence over T steps: (y, h_final), or
     (y, hs, h_final) with ``return_hidden``. CPU tensors take the plain
@@ -97,29 +242,47 @@ def gru_stack(h0, x, wx, bx, wh, bh, return_hidden: bool = False):
     layers = h0.shape[0]
     if hidden % 16:
         raise ValueError("gru_stack: hidden %d is not a multiple of 16" % hidden)
-    _build.require_cuda(x, "gru_stack x", torch.bfloat16)
+    _build.require_cuda(x, "gru_stack x", torch.bfloat16, aligned=True)
     _build.require_cuda(h0, "gru_stack h0", torch.float32, (layers, b, hidden))
     for name, w in (("wx", wx), ("wh", wh)):
         _build.require_cuda(w, "gru_stack " + name, torch.bfloat16,
                             (layers, hidden, 3 * hidden), aligned=True)
     for name, v in (("bx", bx), ("bh", bh)):
         _build.require_cuda(v, "gru_stack " + name, torch.float32, (layers, 3 * hidden))
+    plan = plan_for(x, layers)
+    # the barrier counter of a group only grows: one count per block and barrier
+    if plan.barriers(t_len) * plan.slices >= 2 ** 32:
+        raise ValueError("gru_stack: T = %d is too long for one launch" % t_len)
     lib = _build.library()
     y = torch.empty_like(x)
     h_final = torch.empty_like(h0)
     # allocated per call: at B = 128, T = 125 it is 49 MB, not worth keeping
     hs = (torch.empty((t_len, layers, b, hidden), dtype=torch.float32, device=x.device)
           if return_hidden else None)
+    exchange = torch.empty(plan.exchange_elems, dtype=torch.bfloat16, device=x.device)
+    counters = torch.zeros(plan.groups, dtype=torch.int32, device=x.device)
     status = lib.koala_gru_stack(
         x.data_ptr(), h0.data_ptr(), wx.data_ptr(), bx.data_ptr(), wh.data_ptr(),
         bh.data_ptr(), y.data_ptr(), hs.data_ptr() if return_hidden else None,
-        h_final.data_ptr(), t_len, b, hidden, layers, _build.stream_handle(x.device))
+        h_final.data_ptr(), exchange.data_ptr(), counters.data_ptr(), t_len, b, hidden,
+        layers, plan.slice_width, plan.chunk_rows, plan.chunks, plan.groups,
+        _build.stream_handle(x.device))
     if return_hidden:
         launches_hs += 1
     else:
         launches += 1
     _build.check(status, "koala_gru_stack")
     return (y, hs, h_final) if return_hidden else (y, h_final)
+
+
+def grid_barriers(plan: GruPlan, count: int, device) -> None:
+    """Launch ``count`` grid barriers and nothing else on the grid of
+    ``plan``: the chain of barriers that a ``gru_stack`` launch cannot go
+    below. For timing; it is not a launch of the GRU kernel."""
+    counters = torch.zeros(plan.groups, dtype=torch.int32, device=device)
+    status = _build.library().koala_grid_barriers(
+        counters.data_ptr(), plan.slices, plan.groups, count, _build.stream_handle(device))
+    _build.check(status, "koala_grid_barriers")
 
 
 def _round_bf16(t):
@@ -218,4 +381,4 @@ def gru_stack_trainable(h0, x, wx, bx, wh, bh):
 
 
 __all__ = ["gru_stack", "gru_stack_ref", "gru_stack_trainable", "gru_stack_backward",
-           "layers_step"]
+           "layers_step", "GruPlan", "plan_launch", "plan_for", "grid_barriers"]

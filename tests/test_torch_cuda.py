@@ -49,7 +49,7 @@ def test_floor_kernel_bit_identical(cuda_device):
 
 @pytest.mark.cuda
 def test_gru_kernel_matches_plain(cuda_device, bundled):
-    """B = 40 spans three 16-row tiles, the last one ragged."""
+    """B = 40 spans three 16-row chunks, the last one ragged."""
     params = params_io.params_from_numpy(bundled[0], cuda_device)
     wx, bx, wh, bh = params.gru_stacked()
     x = _randn(1, (24, 40, 384), 0.3, cuda_device).bfloat16()
@@ -81,6 +81,89 @@ def test_gru_hidden_kernel_matches_plain(cuda_device, bundled):
     assert hs.shape == (24, 2, 40, 384)
     assert torch.equal(y, y0) and torch.equal(hf, hf0) and torch.equal(hs[-1], hf)
     assert (hs - hsr).abs().max().item() <= GRU_ATOL
+
+
+def _random_gru(seed, t_len, b, hidden, layers, device):
+    scale = 1.5 / hidden ** 0.5
+    return (_randn(seed, (layers, b, hidden), 0.2, device),
+            _randn(seed + 1, (t_len, b, hidden), 0.3, device).bfloat16(),
+            _randn(seed + 2, (layers, hidden, 3 * hidden), scale, device).bfloat16(),
+            _randn(seed + 3, (layers, 3 * hidden), 0.1, device),
+            _randn(seed + 4, (layers, hidden, 3 * hidden), scale, device).bfloat16(),
+            _randn(seed + 5, (layers, 3 * hidden), 0.1, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len,b,hidden,layers", [
+    (12, 1, 384, 2), (9, 17, 384, 2), (8, 64, 384, 2), (8, 128, 384, 2), (6, 300, 384, 2),
+    (0, 5, 384, 2), (16, 40, 64, 1), (16, 64, 128, 3), (5, 300, 128, 3), (7, 33, 384, 3)])
+def test_gru_kernel_shapes(cuda_device, t_len, b, hidden, layers):
+    """Single-row, ragged, many-pass and wide batches, one to three layers,
+    T = 0: both variants within the GRU tolerance of the plain version and
+    bit-identical to each other, one launch a call, and the plan's
+    shared-memory size the kernel's own."""
+    from koala_tpu_torch.ops.kernels import _build
+
+    args = _random_gru(10, t_len, b, hidden, layers, cuda_device)
+    plan = gru.plan_for(args[1], layers)
+    assert _build.library().koala_gru_smem_bytes(
+        hidden, layers, plan.slice_width, plan.chunk_rows) == plan.smem_bytes
+    before = (gru.launches, gru.launches_hs)
+    y0, hf0 = gru.gru_stack(*args)
+    y, hs, hf = gru.gru_stack(*args, return_hidden=True)
+    yr, hsr, hr = gru.gru_stack_ref(*args, return_hidden=True)
+    torch.cuda.synchronize()
+    assert (gru.launches, gru.launches_hs) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, y0) and torch.equal(hf, hf0)
+    assert hs.shape == (t_len, layers, b, hidden)
+    if t_len == 0:
+        assert torch.equal(hf, args[0])
+        return
+    assert torch.equal(hs[-1], hf)
+    assert (y.float() - yr.float()).abs().max().item() <= GRU_ATOL
+    assert (hf - hr).abs().max().item() <= GRU_ATOL
+    assert (hs - hsr).abs().max().item() <= GRU_ATOL
+
+
+@pytest.mark.cuda
+def test_gru_kernel_chunked_and_repeatable(cuda_device, bundled):
+    """A sequence in two chunks (state handed over through h_final / h0)
+    equals one run bit for bit, and so do two launches on the same inputs."""
+    params = params_io.params_from_numpy(bundled[0], cuda_device)
+    w = params.gru_stacked()
+    x = _randn(1, (29, 40, 384), 0.3, cuda_device).bfloat16()
+    h0 = _randn(2, (2, 40, 384), 0.2, cuda_device)
+    y, hs, hf = gru.gru_stack(h0, x, *w, return_hidden=True)
+    ya, hsa, ha = gru.gru_stack(h0, x[:11], *w, return_hidden=True)
+    yb, hsb, hb = gru.gru_stack(ha, x[11:], *w, return_hidden=True)
+    y2, hs2, hf2 = gru.gru_stack(h0, x, *w, return_hidden=True)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([ya, yb]), y) and torch.equal(hb, hf)
+    assert torch.equal(torch.cat([hsa, hsb]), hs)
+    assert torch.equal(y2, y) and torch.equal(hs2, hs) and torch.equal(hf2, hf)
+
+
+@pytest.mark.cuda
+def test_gru_kernel_same_bits_over_many_launches(cuda_device):
+    """The serving path's shape (T = 376, B = 64, 96 blocks) thirty times: a
+    stale read past a grid barrier would show as a launch that differs."""
+    args = _random_gru(40, 376, 64, 384, 2, cuda_device)
+    first = gru.gru_stack(*args, return_hidden=True)
+    for _ in range(30):
+        again = gru.gru_stack(*args, return_hidden=True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_grid_barriers_launch(cuda_device):
+    """The barriers-only launch on a GRU plan's grid runs to its end and is
+    no launch of the GRU kernel."""
+    plan = gru.plan_launch(64, 384, 2, sms=torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    before = (gru.launches, gru.launches_hs)
+    gru.grid_barriers(plan, plan.barriers(50), cuda_device)
+    torch.cuda.synchronize()
+    assert (gru.launches, gru.launches_hs) == before
 
 
 @pytest.mark.cuda
