@@ -19,7 +19,9 @@
 //   sigmoid_fast,  the gate functions from the fast exponential.
 //   tanh_fast
 //
-// The GRU-stack kernel (gru.cu) is built from these.
+// The GRU-stack kernel (gru.cu) is built from these; the tiled product of
+// the fused engine (tile_gemm.cuh) and the floor tracker (floor_scan.cuh)
+// take the copies and the tensor-core wrappers.
 
 #pragma once
 

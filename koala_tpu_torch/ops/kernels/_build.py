@@ -97,7 +97,8 @@ _SIGNATURES = {
     "koala_gru_smem_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
     "koala_grid_barriers": ([_P, _I, _I, _I, _P], _I),
     "koala_engine_fused": ([_P], _I),   # pointer to struct FusedArgs (host memory)
-    "koala_engine_fused_smem": ([_I, _I, _I], ctypes.c_size_t),
+    "koala_engine_fused_smem": ([_I, _I], ctypes.c_size_t),
+    "koala_empty_launch": ([_P], _I),
 }
 
 

@@ -1,8 +1,8 @@
-"""The whole enhancement engine in one launch: CUDA kernel and plain version.
+"""The whole enhancement engine over T hops: CUDA kernels and plain version.
 
 ``fused_sequence`` replaces the JAX package's TPU kernel ``fused_sequence``
 (ops/pallas/engine_fused.py:384 -> _fused_call :285 -> _kernel :118). Per
-hop of every stream, over T hops in one launch:
+hop of every stream:
 
     split-K windowed DFT of [carry | hop] -> log-magnitude, band log-energy,
     floor tracker, SNR and floor-level features, 8 cepstral group maxima ->
@@ -10,7 +10,7 @@ hop of every stream, over T hops in one launch:
     gate -> masked inverse DFT -> overlap-add
 
 bf16 product operands with f32 sums everywhere (the DFT bases too), f32
-state, the frame carry held as bf16 - the TPU kernel's numerics. Compared
+state, the frame carry rounded to bf16 - the TPU kernel's numerics. Compared
 with the engine's float32 DFT path the output moves by bf16 spectral
 rounding only (tests hold it at >= 35 dB).
 
@@ -19,11 +19,19 @@ padded to KR = 272 (a multiple of the 16-wide tensor-core tile) for re and
 KI = 256 for im (the im Nyquist bin is identically zero). Padding columns
 carry exact zeros and zero weight rows, so they never reach a real output.
 
-On this card the kernel's least time is set by the bf16 products
-(operations); what limits this first design is that every block reads all weights and
-bases (about 5 MB) from L2 once per hop. One block owns 16 stream rows for
-the whole T loop and keeps every temporary and all state in shared memory
-(csrc/engine_fused.cu).
+On this card the least time is set by the bf16 products (operations), and
+two thirds of them are the GRU's, whose steps depend on each other. So the
+chain is split by its dependences (csrc/engine_fused.cu): the frame-local
+work (DFT, features, band and cepstral products, encoder; decoder, mask,
+inverse DFT) runs as tiled tensor-core products over all B x T frames at
+once on every SM, the floor tracker as the stand-alone ``floor_scan``'s
+kernel, the GRU as ``gru_stack``'s kernel with ``plan_launch``'s plan, and
+the two shifts between neighbouring hops are indexing. One call of the C
+entry is five launches back to back: front, floor, encode, GRU, back. What
+passes between them lies in a workspace that scales with B x T
+(``frame_bytes``), so long inputs are walked in segments of whole hops under
+``WORKSPACE_BYTES``, with the state carried between two segments exactly as
+between two calls.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from ...constants import FFT_SIZE, FRAME_LENGTH, NUM_BINS
 from ...models.mask_gru import _band_matrix_np, _cep_matrix_np
 from ..stft import _windowed_bases
 from . import _build
-from .gru import layers_step
+from .gru import layers_step, plan_launch
 
 T_BLOCK = 8        # sequence_fast runs whole multiples of this through the kernel
 KR = 272           # re bins, 257 padded to a multiple of 16
@@ -47,9 +55,15 @@ KI = 256           # im bins 0..255 (the Nyquist bin's im is identically 0)
 KS = KR + KI       # spectrum width
 MAX_CEP = 8
 SMEM_LIMIT = 232448   # dynamic shared memory one block may use on Hopper
+# Most bytes of workspace that one segment of a call may take (a constant of
+# the design, not a knob): 468 hops at B = 64, so a 6 s batch is one segment.
+WORKSPACE_BYTES = 128 * 2 ** 20
+STAGES = ("front", "floor", "encode", "gru", "back")
 
-# launches of the CUDA kernel since the last reset (a plain integer)
+# calls of ``fused_sequence`` that launched the kernels since the last reset,
+# and the device launches they made: five per segment (plain integers)
 launches = 0
+device_launches = 0
 
 
 def _ceil16(n: int) -> int:
@@ -70,11 +84,26 @@ class Layout:
         self.layers = cfg["num_layers"]
 
 
+def frame_bytes(hidden: int, nbp: int) -> int:
+    """Workspace bytes per frame (one hop of one stream): the f32 spectrum,
+    the bf16 feature, lb and floors, the cepstral maxima, x and y."""
+    return KS * 4 + KR * 2 + 2 * nbp * 4 + MAX_CEP * 4 + 2 * hidden * 2
+
+
+def segment_hops(batch: int, per_frame: int, budget: int = WORKSPACE_BYTES) -> int:
+    """Hops of one segment: as many whole hops of ``batch`` streams as
+    ``budget`` bytes of workspace hold, and never fewer than one. The port
+    always takes the default ``budget``; tests give smaller ones."""
+    return max(1, budget // (batch * per_frame))
+
+
 def fused_sequence_supported(cfg, batch: int, t_len: int, device) -> bool:
-    """Shape/config gate for the fused engine kernel on ``device``. Any
-    batch >= 1 and any T >= 1 are taken; the conditions are what the kernel's
-    layout needs. On a card the block's shared memory, as the CUDA source
-    carves it, must also fit; the CPU's plain version has no such limit."""
+    """Shape/config gate for the fused engine kernels on ``device``. Any
+    batch >= 1 and any T >= 1 are taken; the conditions are what the stages'
+    layout needs. On a card the GRU stage must also have a launch plan
+    (``plan_launch``) and the widest stage's block must fit the shared
+    memory, as the CUDA source lays it out; the CPU's plain version has no
+    such limits."""
     if cfg.get("kind", "mask_gru") != "mask_gru":
         return False
     if cfg.get("bins", NUM_BINS) != NUM_BINS:
@@ -85,14 +114,18 @@ def fused_sequence_supported(cfg, batch: int, t_len: int, device) -> bool:
         return False
     if cfg.get("compute_dtype") != "bfloat16":
         return False
-    if cfg["hidden"] % 16 != 0 or cfg["hidden"] > KS or cfg["num_layers"] < 1:
+    if cfg["hidden"] % 16 != 0 or cfg["num_layers"] < 1:
         return False
     if batch < 1 or t_len < 1:
         return False
     if torch.device(device).type != "cuda":
         return True
-    smem = _build.library().koala_engine_fused_smem(
-        cfg["snr_bands"], cfg["hidden"], cfg["num_layers"])
+    try:
+        plan_launch(batch, cfg["hidden"], cfg["num_layers"],
+                    sms=torch.cuda.get_device_properties(device).multi_processor_count)
+    except ValueError:
+        return False
+    smem = _build.library().koala_engine_fused_smem(_ceil16(cfg["snr_bands"]), cfg["hidden"])
     return smem <= SMEM_LIMIT
 
 
@@ -227,22 +260,30 @@ def fused_sequence_ref(params, state, hops, cfg):
 class _Args(ctypes.Structure):
     """Mirror of struct FusedArgs in csrc/engine_fused.cu (field for field)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "hops", "fwd", "band", "cepb", "wenc", "benc", "wcep", "wx", "bx", "wh", "bh",
-        "wdec", "bdec", "inv", "carry0", "ola0", "floor0", "h0",
-        "out", "ola_out", "floor_out", "h_out", "stream")]
-        + [(n, ctypes.c_int) for n in ("B", "T", "H", "L", "nb", "cep")]
+        "hops", "carry0", "fwd", "band", "cepb", "wenc", "benc", "wcep", "wx", "bx", "wh",
+        "bh", "wdec", "bdec", "inv", "ola0", "floor0", "h0",
+        "out", "ola_out", "floor_out", "h_out",
+        "spec", "feat", "lb", "floors", "cg", "x", "y", "exch", "counters", "stage_ms",
+        "stream")]
+        + [(n, ctypes.c_int) for n in (
+            "B", "T", "H", "L", "nbp", "cep", "hop_stride", "carry_stride", "out_stride",
+            "gru_w", "gru_rb", "gru_chunks", "gru_groups")]
         + [("cep_lo", ctypes.c_int * MAX_CEP), ("cep_hi", ctypes.c_int * MAX_CEP)]
         + [(n, ctypes.c_float) for n in (
             "eps2", "feat_shift", "feat_scale", "rise", "snr_scale", "snr_clip",
             "cep_scale")])
 
 
-def fused_sequence(params, state, hops, cfg):
+def fused_sequence(params, state, hops, cfg, stage_ms=None):
     """Fused-engine sequence: (params, engine state, hops [B,T,256] f32) ->
     (state', out [B,T,256] f32), with the engine's state contract. Chunking
-    is exact: [0:T1] then [T1:T] equals one [0:T] call bit for bit. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (or raise)."""
-    global launches
+    is exact: [0:T1] then [T1:T] equals one [0:T] call bit for bit, and so
+    does the walk in segments that keeps the workspace under
+    ``WORKSPACE_BYTES``. CPU tensors take the plain version; CUDA tensors
+    launch the kernels (or raise). ``stage_ms``: a dict that receives the
+    summed milliseconds of each of ``STAGES``. For measurements only: with it
+    every segment synchronises with the card before the call goes on."""
+    global launches, device_launches
     if hops.device.type == "cpu":
         return fused_sequence_ref(params, state, hops, cfg)
     if hops.dim() != 3 or hops.shape[-1] != FRAME_LENGTH:
@@ -253,45 +294,89 @@ def fused_sequence(params, state, hops, cfg):
         raise ValueError("fused_sequence: configuration or shape not supported")
     ops = prepare(params, cfg)
     lay = ops["layout"]
-    h, L = lay.hidden, lay.layers
-    carry0 = state["input_carry"].float().contiguous()
-    ola0 = state["ola"].float().contiguous()
+    h, L, nbp = lay.hidden, lay.layers, lay.nbp
+    dev = hops.device
+    carry = state["input_carry"].float().contiguous()
+    ola = state["ola"].float().contiguous()
     floor0 = state["model"]["floor"].float().contiguous()
-    h0 = state["model"]["h"].float().contiguous()               # [B, L, H]
+    h_state = state["model"]["h"].float().contiguous()          # [B, L, H]
     hops = hops.contiguous()
-    _build.require_cuda(hops, "fused hops", torch.float32)
-    for name, t, shape in (("carry", carry0, (b, FRAME_LENGTH)),
-                           ("ola", ola0, (b, FRAME_LENGTH)),
-                           ("floor", floor0, (b, lay.nb)), ("h", h0, (b, L, h))):
-        _build.require_cuda(t, "fused " + name, torch.float32, shape)
+    _build.require_cuda(hops, "fused hops", torch.float32, aligned=True)
+    for name, t, shape in (("carry", carry, (b, FRAME_LENGTH)), ("ola", ola, (b, FRAME_LENGTH)),
+                           ("floor", floor0, (b, lay.nb)), ("h", h_state, (b, L, h))):
+        _build.require_cuda(t, "fused " + name, torch.float32, shape, aligned=True)
     for name in ("fwd", "band", "cepb", "wenc", "wdec", "inv", "wx", "wh"):
         _build.require_cuda(ops[name], "fused " + name, torch.bfloat16, aligned=True)
     for name in ("benc", "wcep", "bdec", "bx", "bh"):
         _build.require_cuda(ops[name], "fused " + name, torch.float32)
+
+    # the kernels' own state layouts: bands padded to nbp at 30, h as [L, B, H]
+    floor = torch.full((b, nbp), 30.0, device=dev)
+    floor[:, :lay.nb] = floor0
+    h_lbh = h_state.movedim(1, 0).contiguous()
+    seg = min(t_len, segment_hops(b, frame_bytes(h, nbp)))
+    plan = plan_launch(b, h, L, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan.barriers(seg) * plan.slices >= 2 ** 32:
+        raise ValueError("fused_sequence: a segment of %d hops is too long for one launch" % seg)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def bf(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev)
+
+    work = {"spec": f32(b * seg, KS), "feat": bf(b * seg, KR), "lb": f32(seg, b, nbp),
+            "floors": f32(seg, b, nbp), "cg": f32(b * seg, MAX_CEP), "x": bf(seg, b, h),
+            "y": bf(seg, b, h), "exch": bf(plan.exchange_elems)}
     out = torch.empty_like(hops)
-    ola_out = torch.empty_like(ola0)
-    floor_out = torch.empty_like(floor0)
-    h_out = torch.empty_like(h0)
     args = _Args(**{k: ops[k].data_ptr() for k in (
         "fwd", "band", "cepb", "wenc", "benc", "wcep", "wx", "bx", "wh", "bh", "wdec",
         "bdec", "inv")})
-    args.hops, args.carry0, args.ola0 = hops.data_ptr(), carry0.data_ptr(), ola0.data_ptr()
-    args.floor0, args.h0 = floor0.data_ptr(), h0.data_ptr()
-    args.out, args.ola_out = out.data_ptr(), ola_out.data_ptr()
-    args.floor_out, args.h_out = floor_out.data_ptr(), h_out.data_ptr()
-    args.stream = _build.stream_handle(hops.device)
-    args.B, args.T, args.H, args.L, args.nb, args.cep = b, t_len, h, L, lay.nb, lay.cep
+    for k, v in work.items():
+        setattr(args, k, v.data_ptr())
+    args.stream = _build.stream_handle(dev)
+    args.B, args.H, args.L, args.nbp, args.cep = b, h, L, nbp, lay.cep
+    args.hop_stride = args.out_stride = t_len * FRAME_LENGTH
+    args.gru_w, args.gru_rb = plan.slice_width, plan.chunk_rows
+    args.gru_chunks, args.gru_groups = plan.chunks, plan.groups
     for g, (lo, hi) in enumerate(ops["bounds"]):
         args.cep_lo[g], args.cep_hi[g] = lo, hi
     for k, v in _scalars(cfg).items():
         setattr(args, k, v)
-    status = _build.library().koala_engine_fused(ctypes.byref(args))
-    launches += 1
-    _build.check(status, "koala_engine_fused")
-    new_state = {"input_carry": hops[:, -1, :].clone(), "ola": ola_out,
-                 "model": {"h": h_out, "floor": floor_out}}
+    times = (ctypes.c_float * len(STAGES))()
+    if stage_ms is not None:
+        args.stage_ms = ctypes.addressof(times)
+    lib = _build.library()
+    for start in range(0, t_len, seg):
+        stop = min(t_len, start + seg)
+        first = hops[:, start]
+        # the hop before the segment: the state's carry, then the input itself
+        before = carry if start == 0 else hops[:, start - 1]
+        ola_next = torch.empty_like(ola)
+        floor_next = torch.empty_like(floor)
+        h_next = torch.empty_like(h_lbh)
+        counters = torch.zeros(plan.groups, dtype=torch.int32, device=dev)
+        args.T = stop - start
+        args.hops, args.out = first.data_ptr(), out[:, start].data_ptr()
+        args.carry0, args.carry_stride = before.data_ptr(), before.stride(0)
+        args.ola0, args.floor0, args.h0 = ola.data_ptr(), floor.data_ptr(), h_lbh.data_ptr()
+        args.ola_out, args.floor_out = ola_next.data_ptr(), floor_next.data_ptr()
+        args.h_out, args.counters = h_next.data_ptr(), counters.data_ptr()
+        # the entry stops at the first stage that fails: a status of 0 is five launches
+        _build.check(lib.koala_engine_fused(ctypes.byref(args)), "koala_engine_fused")
+        if start == 0:
+            launches += 1
+        device_launches += len(STAGES)
+        if stage_ms is not None:
+            for name, ms in zip(STAGES, times):
+                stage_ms[name] = stage_ms.get(name, 0.0) + float(ms)
+        ola, floor, h_lbh = ola_next, floor_next, h_next
+    new_state = {"input_carry": hops[:, -1, :].clone(), "ola": ola,
+                 "model": {"h": h_lbh.movedim(0, 1).contiguous(),
+                           "floor": floor[:, :lay.nb].contiguous()}}
     return new_state, out
 
 
 __all__ = ["fused_sequence", "fused_sequence_ref", "fused_sequence_supported",
-           "prepare", "Layout", "T_BLOCK"]
+           "prepare", "Layout", "T_BLOCK", "frame_bytes", "segment_hops", "WORKSPACE_BYTES",
+           "STAGES"]

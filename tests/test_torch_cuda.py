@@ -21,6 +21,12 @@ from torch_ref import ACCESS_KEY, cuda_device, snr_db  # noqa: F401  (fixture)
 # cores sum in another order, and one flipped bf16 rounding of the streamed
 # x feeds the recurrence (tests/test_pallas_gru.py's atol).
 GRU_ATOL = 4e-2
+# The fused engine's final h and floor against the plain version's: beside the
+# GRU's own flips, a flipped bf16 rounding of a feature or of the encoder's
+# output feeds the recurrence (0.048 seen at B = 300 over 40 hops); a flipped
+# rounding of one band power moves its log, and so the floor, by up to 2**-8.
+FUSED_H_ATOL = 0.1
+FUSED_FLOOR_ATOL = 2e-2
 
 
 @pytest.fixture(scope="module")
@@ -45,6 +51,45 @@ def test_floor_kernel_bit_identical(cuda_device):
     torch.cuda.synchronize()
     assert floor.launches == before + 1
     assert torch.equal(kfl, rfl) and torch.equal(kf, rf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len,b,nb", [
+    (376, 64, 32), (63, 64, 32),       # the serving and the training path's shapes
+    (40, 37, 30),                      # B x nb = 1110: rows not 16-byte aligned
+    (1, 5, 32), (0, 5, 32),            # one frame, none
+    (130, 3, 7),                       # 21 columns over three slabs of 64 rows
+    (200, 9, 36)])                     # 324 columns: the last block holds 4
+def test_floor_kernel_shapes(cuda_device, t_len, b, nb):
+    """Bit-identical to the plain version at every shape, one launch a call."""
+    lb = _randn(t_len + b, (t_len, b, nb), 3.0, cuda_device)
+    f0 = _randn(nb, (b, nb), 2.0, cuda_device) + 1.0
+    before = floor.launches
+    kf, kfl = floor.floor_scan(f0, lb, 0.012)
+    rf, rfl = floor.floor_scan_ref(f0, lb, 0.012)
+    torch.cuda.synchronize()
+    assert floor.launches == before + 1
+    assert kfl.shape == rfl.shape and torch.equal(kfl, rfl) and torch.equal(kf, rf)
+
+
+@pytest.mark.cuda
+def test_floor_kernel_unaligned_view(cuda_device):
+    """lb that starts 4 bytes past an aligned address takes the 4-byte copies."""
+    base = _randn(9, (50 * 8 * 32 + 1,), 3.0, cuda_device)
+    lb = base[1:].view(50, 8, 32)
+    f0 = torch.full((8, 32), 30.0, device=cuda_device)
+    kf, kfl = floor.floor_scan(f0, lb, 0.012)
+    rf, rfl = floor.floor_scan_ref(f0, lb, 0.012)
+    torch.cuda.synchronize()
+    assert torch.equal(kfl, rfl) and torch.equal(kf, rf)
+
+
+@pytest.mark.cuda
+def test_empty_launch_counts_nothing(cuda_device):
+    before = floor.launches
+    floor.empty_launch(cuda_device)
+    torch.cuda.synchronize()
+    assert floor.launches == before
 
 
 @pytest.mark.cuda
@@ -200,33 +245,151 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         assert torch.dot(ga, gb) / (ga.norm() * gb.norm()) >= 0.99, name
 
 
+def _fused_state_equal(a, b):
+    return (torch.equal(a["input_carry"], b["input_carry"]) and torch.equal(a["ola"], b["ola"])
+            and torch.equal(a["model"]["h"], b["model"]["h"])
+            and torch.equal(a["model"]["floor"], b["model"]["floor"]))
+
+
 @pytest.mark.cuda
 def test_fused_kernel_matches_plain(cuda_device, bundled):
     """B = 40: >= 40 dB against the plain version; chunked equals continuous
-    bit for bit."""
+    bit for bit; a call is five device launches (one segment)."""
     tree, cfg = bundled
     params = params_io.params_from_numpy(tree, cuda_device)
     hops = _randn(3, (40, 24, 256), 0.05, cuda_device)
     state = make_engine("mask_gru", cfg).init_state((40,), cuda_device)
-    before = engine_fused.launches
+    before = (engine_fused.launches, engine_fused.device_launches, gru.launches,
+              floor.launches)
     st, out = engine_fused.fused_sequence(params, state, hops, cfg)
     _, ref = engine_fused.fused_sequence_ref(params, state, hops, cfg)
     st_a, a = engine_fused.fused_sequence(params, state, hops[:, :8], cfg)
-    _, b = engine_fused.fused_sequence(params, st_a, hops[:, 8:], cfg)
+    st_b, b = engine_fused.fused_sequence(params, st_a, hops[:, 8:], cfg)
     torch.cuda.synchronize()
-    assert engine_fused.launches == before + 3
+    assert engine_fused.launches == before[0] + 3
+    assert engine_fused.device_launches == before[1] + 15
+    # the stages are the fused entry's own: the stand-alone wrappers count nothing
+    assert (gru.launches, floor.launches) == before[2:]
     assert snr_db(ref.cpu().numpy(), out.cpu().numpy()) >= 40.0
     assert torch.equal(torch.cat([a, b], dim=1), out)
+    assert _fused_state_equal(st_b, st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t_len", [(1, 40), (17, 40), (128, 40), (300, 40), (64, 8),
+                                     (5, 1), (300, 104)])
+def test_fused_kernel_shapes(cuda_device, bundled, b, t_len):
+    """Single-stream, ragged and wide batches, T = 8 and T = 1, and B = 300 x
+    T = 104, which crosses a workspace segment (99 hops): from a state that
+    is not zero, >= 40 dB from the plain version on output and state close;
+    two launches give the same bits."""
+    tree, cfg = bundled
+    params = params_io.params_from_numpy(tree, cuda_device)
+    hops = _randn(b + t_len, (b, t_len + 8, 256), 0.05, cuda_device)
+    zero = make_engine("mask_gru", cfg).init_state((b,), cuda_device)
+    state, _ = engine_fused.fused_sequence(params, zero, hops[:, :8], cfg)
+    hops = hops[:, 8:]
+    lay = engine_fused.Layout(cfg)
+    seg = engine_fused.segment_hops(b, engine_fused.frame_bytes(lay.hidden, lay.nbp))
+    before = engine_fused.device_launches
+    st, out = engine_fused.fused_sequence(params, state, hops, cfg)
+    assert engine_fused.device_launches - before == 5 * -(-t_len // seg)
+    st2, out2 = engine_fused.fused_sequence(params, state, hops, cfg)
+    rst, ref = engine_fused.fused_sequence_ref(params, state, hops, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert snr_db(ref.cpu().numpy(), out.cpu().numpy()) >= 40.0
+    assert snr_db(rst["ola"].cpu().numpy(), st["ola"].cpu().numpy()) >= 40.0
+    assert (st["model"]["h"] - rst["model"]["h"]).abs().max().item() <= FUSED_H_ATOL
+    assert (st["model"]["floor"] - rst["model"]["floor"]).abs().max().item() <= FUSED_FLOOR_ATOL
+    assert torch.equal(st["input_carry"], rst["input_carry"])
+    assert torch.equal(out, out2) and _fused_state_equal(st, st2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides", [
+    dict(hidden=64, num_layers=1, snr_bands=24),      # bands padded to 32, two idle warp columns
+    dict(hidden=128, num_layers=3, cep_feats=0),      # no cepstral stage
+    dict(hidden=208, num_layers=1, snr_bands=40)])    # ragged passes: 208 and 48 columns
+def test_fused_kernel_other_configs(cuda_device, overrides):
+    """Widths and depths away from the bundled model's, on seeded random
+    weights with the gate opened: >= 40 dB from the plain version, chunked
+    equal to continuous bit for bit."""
+    cfg = dict(mask_gru.TRAIN_CONFIG, **overrides)
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    params = mask_gru.init_params(gen, cfg)
+    with torch.no_grad():
+        params.gate.w.copy_(_randn(22, tuple(params.gate.w.shape), 0.1, cuda_device))
+    assert engine_fused.fused_sequence_supported(cfg, 19, 24, cuda_device)
+    hops = _randn(23, (19, 24, 256), 0.05, cuda_device)
+    state = make_engine("mask_gru", cfg).init_state((19,), cuda_device)
+    st, out = engine_fused.fused_sequence(params, state, hops, cfg)
+    rst, ref = engine_fused.fused_sequence_ref(params, state, hops, cfg)
+    st_a, a = engine_fused.fused_sequence(params, state, hops[:, :8], cfg)
+    st_b, b = engine_fused.fused_sequence(params, st_a, hops[:, 8:], cfg)
+    torch.cuda.synchronize()
+    assert snr_db(ref.cpu().numpy(), out.cpu().numpy()) >= 40.0
+    assert st["model"]["floor"].shape == rst["model"]["floor"].shape == (19, cfg["snr_bands"])
+    assert (st["model"]["floor"] - rst["model"]["floor"]).abs().max().item() <= FUSED_FLOOR_ATOL
+    assert (st["model"]["h"] - rst["model"]["h"]).abs().max().item() <= FUSED_H_ATOL
+    assert torch.equal(torch.cat([a, b], dim=1), out) and _fused_state_equal(st_b, st)
+
+
+@pytest.mark.cuda
+def test_fused_segments_equal_calls(cuda_device, bundled):
+    """B = 300 x T = 104 in one call (two workspace segments, 99 + 5 hops)
+    against two calls of one segment each, cut elsewhere: the same bits."""
+    tree, cfg = bundled
+    params = params_io.params_from_numpy(tree, cuda_device)
+    hops = _randn(12, (300, 104, 256), 0.05, cuda_device)
+    state = make_engine("mask_gru", cfg).init_state((300,), cuda_device)
+    st, out = engine_fused.fused_sequence(params, state, hops, cfg)
+    st_a, a = engine_fused.fused_sequence(params, state, hops[:, :40], cfg)
+    st_b, b = engine_fused.fused_sequence(params, st_a, hops[:, 40:], cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([a, b], dim=1), out) and _fused_state_equal(st_b, st)
+
+
+@pytest.mark.cuda
+def test_fused_stage_times(cuda_device, bundled):
+    """``stage_ms`` receives a time for each of the five stages and changes
+    nothing of the result."""
+    tree, cfg = bundled
+    params = params_io.params_from_numpy(tree, cuda_device)
+    hops = _randn(3, (40, 24, 256), 0.05, cuda_device)
+    state = make_engine("mask_gru", cfg).init_state((40,), cuda_device)
+    times = {}
+    st, out = engine_fused.fused_sequence(params, state, hops, cfg, stage_ms=times)
+    st2, out2 = engine_fused.fused_sequence(params, state, hops, cfg)
+    torch.cuda.synchronize()
+    assert tuple(times) == engine_fused.STAGES and all(v > 0.0 for v in times.values())
+    assert torch.equal(out, out2) and _fused_state_equal(st, st2)
 
 
 @pytest.mark.cuda
 def test_fused_gate_shared_memory(cuda_device, bundled):
-    """The bundled model's block fits the card's shared memory; twelve
-    layers of hidden state do not."""
+    """The bundled model has a GRU launch plan and its widest stage fits the
+    card's shared memory; twelve layers have no plan, and at hidden = 1024 the
+    back stage's block does not fit. A refused shape raises, it does not fall
+    back."""
+    from koala_tpu_torch.ops.kernels import _build
+
     cfg = bundled[1]
+    lay = engine_fused.Layout(cfg)
+    assert _build.library().koala_engine_fused_smem(lay.nbp, lay.hidden) <= \
+        engine_fused.SMEM_LIMIT
     assert engine_fused.fused_sequence_supported(cfg, 64, 376, cuda_device)
+    assert engine_fused.fused_sequence_supported(cfg, 1, 1, cuda_device)
     assert not engine_fused.fused_sequence_supported(dict(cfg, num_layers=12), 64, 376,
                                                      cuda_device)
+    assert _build.library().koala_engine_fused_smem(lay.nbp, 1024) > engine_fused.SMEM_LIMIT
+    assert not engine_fused.fused_sequence_supported(dict(cfg, hidden=1024), 64, 376,
+                                                     cuda_device)
+    params = params_io.params_from_numpy(bundled[0], cuda_device)
+    state = make_engine("mask_gru", cfg).init_state((4,), cuda_device)
+    with pytest.raises(ValueError):
+        engine_fused.fused_sequence(params, state, torch.zeros((4, 8, 256), device=cuda_device),
+                                    dict(cfg, num_layers=12))
 
 
 @pytest.mark.cuda
