@@ -49,8 +49,27 @@
    (bit-identical); times a train step and its parts at B = 64 x 63 and
    B = 128 x 125, each shape twice.
 5. Times ``enhance`` and ``process_chunk`` five more times each (a first
-   call carries one-off host work), then prints one
-   ``{"kernels": [...]}`` line, the card's name and power limit, and, last,
+   call carries one-off host work).
+6. Drives the serving plane, again with the counters set to 0 just before
+   each run and read just after: ``StreamingServer`` (64 streams, chunks of
+   8 frames) takes every stream's 6.0 s in one ``push_block`` (every round a
+   full chunk: the floor and GRU kernels) and gives it back through
+   ``pull_block``; frames per second, audio-s/s, the launches, and the
+   output against ``process_chunk`` on the card and the port on the CPU
+   (>= 35 dB). Then the same 64 streams live, one frame each every 16 ms for
+   3 s (single-frame rounds): push-to-pull latency p50 and p90 (p50 below
+   16 ms), and a stream reset mid-run that lets no pre-reset audio through.
+   Then one round trip of 128 frames through ``scripts/serve_tcp_torch.py
+   --device gpu`` as a subprocess: aligned 1:1 and within 2 LSB of the
+   backlog run.
+7. Drives the parallel layer: ``CorpusRunner`` on a mesh of one card at
+   B = 64 x 6.0 s (the fused engine; bit-identical to
+   ``Engine.sequence_fast``; audio-s/s of a wash), and the data-parallel
+   ``make_train_step(mesh=...)`` under a one-rank NCCL group at
+   ``TRAIN_CONFIG``, B = 64 x 63: loss and weights after one step
+   bit-identical to the unsharded step, and its time.
+8. Prints one ``{"kernels": [...]}`` line (each kernel's launches by path
+   and in all), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero. Without a CUDA card, or without the
@@ -60,6 +79,7 @@ repository beside it, it exits nonzero before printing a result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import importlib
 import io
 import json
@@ -69,6 +89,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -94,6 +115,9 @@ GRAD_COS = 0.999               # kernel-forward gradients against autograd throu
 GRAD_NORM = 0.02               # plain version: per-leaf cosine and relative norm
 LOSS_REL = 1e-3                # loss on the card against the port on the CPU
 LOSS_GRAD_COS = 0.99           # ... and its per-leaf gradient cosine
+SERVE_CHUNK = 8                # the server's backlog rounds: 376 = 47 full chunks
+LIVE_S = 3.0                   # live cadence: one frame a stream every 16 ms
+TCP_FRAMES = 128               # the TCP round trip: 2.048 s, 16 full chunks
 
 
 def fail(msg: str) -> None:
@@ -675,6 +699,309 @@ def training_phases(kt, dev, card, reset_counts, counts):
     return entry, floor_train
 
 
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def pull_all(srv, n_streams, frames, deadline_s=120.0):
+    """Pull ``frames`` enhanced frames of every stream from a server."""
+    got = np.zeros((n_streams, frames, 256), np.int16)
+    have = np.zeros(n_streams, np.int64)
+    deadline = time.time() + deadline_s
+    while have.sum() < n_streams * frames and time.time() < deadline:
+        rows, cnt = srv.pull_block(frames)
+        if not cnt.any():
+            time.sleep(0.0005)
+            continue
+        for i in np.nonzero(cnt)[0]:
+            c = min(int(cnt[i]), frames - int(have[i]))
+            got[i, have[i]:have[i] + c] = rows[i, :c]
+            have[i] += c
+    if have.sum() < n_streams * frames:
+        fail("the server gave %d of %d frames within %.0f s"
+             % (have.sum(), n_streams * frames, deadline_s))
+    return got
+
+
+def serving_phases(dev, card, reset_counts, counts, pcm, out_chunk, out_cpu):
+    """Phase 6: the StreamingServer on the card (backlog rounds, live cadence
+    with a reset), and one round trip through scripts/serve_tcp_torch.py.
+    Returns the launches of the backlog run."""
+    from koala_tpu_torch.serve import StreamingServer
+
+    rows = np.ascontiguousarray(pcm[:, :T * 256].reshape(B, T, 256))
+
+    def server(**kw):
+        return StreamingServer(ACCESS_KEY, num_streams=B, device="gpu", capacity_frames=T,
+                               chunk_frames=SERVE_CHUNK, **kw)
+
+    # warm-up: one full chunk of every stream through a server of its own
+    warm = server()
+    warm.push_block(rows[:, :SERVE_CHUNK], np.full(B, SERVE_CHUNK, np.int32))
+    pull_all(warm, B, SERVE_CHUNK)
+    warm.close()
+
+    # ---- backlog: every stream's 6.0 s in one push, every round a full chunk
+    srv = server()
+    torch.cuda.synchronize()
+    reset_counts()
+    s = time.perf_counter()
+    accepted = srv.push_block(rows, np.full(B, T, np.int32))
+    got = pull_all(srv, B, T)
+    wall = time.perf_counter() - s
+    backlog_counts = counts()
+    stats = srv.stats
+    srv.close()
+    if accepted != B * T:
+        fail("push_block accepted %d of %d frames" % (accepted, B * T))
+    if backlog_counts["floor_scan"] < 1 or backlog_counts["gru_stack"] < 1:
+        fail("the server's backlog rounds did not launch the floor and GRU kernels: %s"
+             % backlog_counts)
+    served = got.reshape(B, T * 256)
+    d_chunk = int(np.abs(served.astype(np.int32) - out_chunk).max())
+    snr_chunk = min(snr_db(out_chunk[i].astype(np.float64), served[i].astype(np.float64))
+                    for i in range(B))
+    snr_cpu = [snr_db(out_cpu[i].astype(np.float64), served[i].astype(np.float64))
+               for i in range(2)]
+    print("path StreamingServer backlog: B=%d streams x T=%d frames, chunk %d: %.0f frames/s, "
+          "%.1f audio-s/s, %.3f s wall, device steps %d, dropped samples %d / %d, launches %s "
+          "on %s" % (B, T, SERVE_CHUNK, B * T / wall, B * T * 256 / 16000.0 / wall, wall,
+                     stats["device_steps"], stats["dropped_samples"],
+                     stats["dropped_output_samples"], backlog_counts, card))
+    print("server backlog vs KoalaBatch.process_chunk on the card: max |diff| %d LSB, least "
+          "%.2f dB; vs the port on the CPU (2 streams): %s dB"
+          % (d_chunk, snr_chunk, ["%.2f" % v for v in snr_cpu]))
+    if min(snr_cpu) < CHUNK_SNR_DB:
+        fail("the server on the card is %.1f dB from the port on the CPU" % min(snr_cpu))
+    if stats["dropped_samples"] or stats["dropped_output_samples"]:
+        fail("the backlog run dropped samples: %s" % stats)
+
+    # ---- live cadence: every stream one frame every 16 ms, one stream reset
+    live_frames = int(LIVE_S * 1000 / 16)
+    rs = 5                                      # the stream that is reset
+    srv = server()
+    warm_rows = rows[:, :4].copy()
+    for j in range(4):                          # a few single-frame rounds first
+        srv.push_block(warm_rows[:, j:j + 1], np.ones(B, np.int32))
+        time.sleep(0.016)
+    pull_all(srv, B, 4)
+    srv.reset(rs)
+    time.sleep(0.05)
+    srv.pull(rs)
+    push_at = np.zeros(live_frames)
+    reset_at = live_frames // 2
+    reset_done = threading.Event()
+    live = rows[:, 4:4 + live_frames].copy()
+    live[rs, reset_at:] = 0                     # after the reset, stream rs sends silence
+
+    def producer():
+        t0 = time.perf_counter()
+        for j in range(live_frames):
+            wait = t0 + j * 0.016 - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            if j == reset_at:
+                srv.reset(rs)
+                reset_done.set()
+            push_at[j] = time.perf_counter()
+            srv.push_block(live[:, j:j + 1], np.ones(B, np.int32))
+
+    th = threading.Thread(target=producer, daemon=True)
+    lat, have = [], np.zeros(B, np.int64)
+    stale = after_reset = 0
+    th.start()
+    deadline = time.time() + LIVE_S + 30
+    while time.time() < deadline:
+        reset_seen = reset_done.is_set()
+        out_rows, cnt = srv.pull_block(8)
+        now = time.perf_counter()
+        for i in np.nonzero(cnt)[0]:
+            c = int(cnt[i])
+            if i == rs:
+                if reset_seen:
+                    after_reset += c
+                    stale += int(np.count_nonzero(out_rows[i, :c]))
+                continue
+            lat.append(now - push_at[have[i]:have[i] + c])
+            have[i] += c
+        if not th.is_alive() and np.delete(have, rs).min() >= live_frames:
+            break
+        if not cnt.any():
+            time.sleep(0.0002)
+    th.join(timeout=10)
+    stats = srv.stats
+    srv.close()
+    if np.delete(have, rs).min() < live_frames:
+        fail("live cadence: %d of %d frames came back" % (np.delete(have, rs).sum(),
+                                                         (B - 1) * live_frames))
+    lat_ms = np.concatenate(lat) * 1e3
+    p50, p90 = np.percentile(lat_ms, 50), np.percentile(lat_ms, 90)
+    print("path StreamingServer live: %d streams, one frame each every 16 ms for %.1f s: "
+          "push-to-pull latency per frame p50 %.3f ms, p90 %.3f ms, max %.3f ms over %d frames; "
+          "device steps %d; dropped samples %d / %d on %s"
+          % (B, LIVE_S, p50, p90, lat_ms.max(), len(lat_ms), stats["device_steps"],
+             stats["dropped_samples"], stats["dropped_output_samples"], card))
+    print("reset of stream %d mid-run: %d frames after it, %d nonzero samples (pre-reset audio)"
+          % (rs, after_reset, stale))
+    if p50 >= 16.0:
+        fail("live cadence: p50 latency %.2f ms is not below one 16 ms frame" % p50)
+    if stale or after_reset == 0:
+        fail("after reset(): %d nonzero samples in %d frames" % (stale, after_reset))
+
+    # ---- one TCP round trip through the port's front, 128 frames of stream 0
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    n = TCP_FRAMES * 256
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "scripts", "serve_tcp_torch.py"), "--device", "gpu",
+         "--port", str(port), "--streams", str(B), "--chunk_frames", str(SERVE_CHUNK)],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        import socket
+
+        deadline = time.time() + 120
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1).close()
+                break
+            except OSError:
+                if proc.poll() is not None or time.time() > deadline:
+                    fail("serve_tcp_torch.py did not start: " + (proc.stdout.read()
+                                                                  if proc.poll() is not None
+                                                                  else "timeout"))
+                time.sleep(0.2)
+        s = time.perf_counter()
+        conn = socket.create_connection(("127.0.0.1", port), timeout=120)
+        conn.sendall(pcm[0, :n].astype("<i2").tobytes())
+        conn.shutdown(socket.SHUT_WR)
+        chunks = []
+        while True:
+            data = conn.recv(65536)
+            if not data:
+                break
+            chunks.append(data)
+        conn.close()
+        tcp_s = time.perf_counter() - s
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=20)
+    reply = np.frombuffer(b"".join(chunks), dtype="<i2")
+    if reply.shape != (n,):
+        fail("TCP reply has %s samples for %d sent" % (reply.shape, n))
+    # the reply is delay-compensated: reply[i] is the served stream's sample
+    # 256 + i; its last 256 samples come from the flush frames
+    d_tcp = int(np.abs(reply[:n - 256].astype(np.int32) - served[0, 256:n]).max())
+    print("TCP round trip (scripts/serve_tcp_torch.py --device gpu): %d samples in %.3f s, "
+          "aligned 1:1, max |diff| against the backlog run %d LSB on %s"
+          % (n, tcp_s, d_tcp, card))
+    if d_tcp > 2:
+        fail("the TCP reply is %d LSB from the backlog run" % d_tcp)
+    return backlog_counts
+
+
+def parallel_phases(dev, card, reset_counts, counts, pcm):
+    """Phase 7: CorpusRunner on a mesh of one card, and the data-parallel
+    train step under a one-rank NCCL group against the unsharded step.
+    Returns the launches of both runs."""
+    import torch.distributed as dist
+
+    from koala_tpu_torch.engine.stream import load_model
+    from koala_tpu_torch.models import mask_gru as mask_gru_model
+    from koala_tpu_torch.models.params_io import default_model_path
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh
+    from koala_tpu_torch.train import corpus
+    from koala_tpu_torch.train.device_sampler import sample_from_tapes
+
+    trainer = importlib.import_module("koala_tpu_torch.train.train")
+
+    # ---- CorpusRunner: B = 64 utterances of 6.0 s on one card
+    mesh = make_mesh(["gpu:0"])
+    samples = T * 256
+    corpus_pcm = pcm[:, :samples].astype(np.float32) / 32768.0
+    runner = CorpusRunner(default_model_path(), global_batch=B, utterance_samples=samples,
+                          mesh=mesh)
+    runner.enhance_batch(corpus_pcm)                   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    out = runner.enhance_batch(corpus_pcm)
+    torch.cuda.synchronize()
+    corpus_counts = counts()
+    engine, params = load_model(default_model_path(), dev)
+    with torch.inference_mode():
+        hops = torch.as_tensor(corpus_pcm.reshape(B, T, 256), device=dev)
+        _, ref = engine.sequence_fast(params, engine.init_state((B,), dev), hops)
+    torch.cuda.synchronize()
+    if corpus_counts["engine_fused"] < 1:
+        fail("CorpusRunner did not launch the fused engine: %s" % corpus_counts)
+    if not torch.equal(out, ref):
+        fail("CorpusRunner differs from Engine.sequence_fast (max |err| %g)"
+             % float((out - ref).abs().max()))
+    report = runner.wash([corpus_pcm] * 6, warmup=1)
+    print("path CorpusRunner: mesh of 1 card, B=%d x %.1f s, launches %s, bit-identical to "
+          "Engine.sequence_fast; wash of 5 batches: %.1f audio-s/s (%.4f s wall) on %s"
+          % (B, samples / 16000.0, corpus_counts, report["audio_seconds_per_second"],
+             report["wall_seconds"], card))
+
+    # ---- data-parallel step, one rank of an NCCL group, against the unsharded step
+    cfg = dict(mask_gru_model.TRAIN_CONFIG)
+    speech = torch.as_tensor(corpus.build_speech_tape(101, 4), device=dev)
+    noise = torch.as_tensor(corpus.build_noise_tape(202, 4), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    noisy, clean = sample_from_tapes(speech, noise, gen, TRAIN_B, TRAIN_T * 256)
+    init = mask_gru_model.init_params(gen, cfg)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:%d" % free_port(),
+                            rank=0, world_size=1)
+    try:
+        dp_mesh = make_mesh(["gpu:0"])
+        if dp_mesh.group is None or dp_mesh.world != 1:
+            fail("the mesh did not take the NCCL group: %r" % dp_mesh)
+        results = {}
+        for name, m in (("unsharded", None), ("data-parallel", dp_mesh)):
+            p = copy.deepcopy(init).requires_grad_(True)
+            step = trainer.make_train_step(cfg, trainer.make_optimizer(p, 3e-4, 200), mesh=m)
+            torch.cuda.synchronize()
+            reset_counts()
+            loss = step(p, noisy, clean)
+            torch.cuda.synchronize()
+            results[name] = (loss, p, counts())
+        (l0, p0, _), (l1, p1, dp_counts) = results["unsharded"], results["data-parallel"]
+        same = torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in
+                                           zip(p0.parameters(), p1.parameters()))
+        if not same:
+            fail("the one-rank data-parallel step differs from the unsharded step: loss %r "
+                 "vs %r" % (float(l1), float(l0)))
+        step = trainer.make_train_step(cfg, trainer.make_optimizer(p1, 3e-4, 200), mesh=dp_mesh)
+        ms = []
+        for i in range(8):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            step(p1, noisy, clean)
+            torch.cuda.synchronize()
+            if i >= 2:
+                ms.append((time.perf_counter() - s) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    if dp_counts["gru_stack_hs"] != 1 or dp_counts["floor_scan"] != 1:
+        fail("a data-parallel step must launch gru_stack_hs and floor_scan once: %s" % dp_counts)
+    print("path data-parallel train step: one NCCL rank, TRAIN_CONFIG B=%d x T=%d, loss %.6f "
+          "and weights bit-identical to the unsharded step; %.2f ms a step (median of %d, "
+          "%.2f-%.2f); launches %s on %s"
+          % (TRAIN_B, TRAIN_T, float(l1), statistics.median(ms), len(ms), min(ms), max(ms),
+             dp_counts, card))
+    return corpus_counts, dp_counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA card: this script measures the port on a card")
@@ -975,10 +1302,7 @@ def main() -> None:
     kernels.insert(2, hs_entry)
     # the floor kernel runs on two paths: the entry's own numbers are those of
     # process_chunk's shape, the training path's stand beside them
-    kernels[0]["launches"] += floor_train["launches"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], floor_train["max_abs_err"])
-    kernels[0]["launches_by_path"] = {"process_chunk": launches["floor_scan"],
-                                      "train_on_device": floor_train["launches"]}
     kernels[0]["train_path"] = floor_train
 
     # ---- 5. end-to-end numbers of this run
@@ -1015,6 +1339,29 @@ def main() -> None:
     lat_ms = np.asarray(lat) * 1e3
     print("process: per-frame p50 %.3f ms, p90 %.3f ms over %d frames on %s"
           % (np.percentile(lat_ms, 50), np.percentile(lat_ms, 90), len(lat_ms), card))
+    # ---- 6. the serving plane: StreamingServer backlog and live rounds, TCP front
+    backlog_counts = serving_phases(dev, card, reset_counts, counts, pcm, out_chunk, out_cpu)
+
+    # ---- 7. the parallel layer: CorpusRunner and the data-parallel train step
+    corpus_counts, dp_counts = parallel_phases(dev, card, reset_counts, counts, pcm)
+
+    # every kernel's launches, by the path that made them
+    by_path = {
+        "floor_scan": {"process_chunk": launches["floor_scan"],
+                       "train_on_device": floor_train["launches"],
+                       "server_backlog": backlog_counts["floor_scan"],
+                       "data_parallel_step": dp_counts["floor_scan"]},
+        "gru_stack": {"process_chunk": launches["gru_stack"],
+                      "server_backlog": backlog_counts["gru_stack"]},
+        "gru_stack_hs": {"train_on_device": hs_entry["launches"],
+                         "data_parallel_step": dp_counts["gru_stack_hs"]},
+        "engine_fused": {"enhance": launches["engine_fused"],
+                         "corpus_runner": corpus_counts["engine_fused"]},
+    }
+    for kr in kernels:
+        kr["launches_by_path"] = by_path[kr["name"]]
+        kr["launches"] = sum(by_path[kr["name"]].values())
+
     for kr in kernels:
         print("kernel %-13s ms %.4f plain_ms %.4f library_ms %s bound_ms %.4f (%s)%s launches %d "
               "on %s" % (kr["name"], kr["ms"], kr["plain_ms"],

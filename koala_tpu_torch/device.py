@@ -13,6 +13,7 @@ Same grammar as the JAX package (``best | cpu[:NUM_THREADS] | gpu[:GPU_INDEX]
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 from typing import List, Optional
@@ -75,6 +76,12 @@ def resolve_device(device: str) -> torch.device:
     return resolve_torch_device(parse_device(device))
 
 
+def device_scope(device: torch.device):
+    """Make a card the current device for a block (nothing for the CPU):
+    kernels launch and events record on the current device's stream."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 def available_devices() -> List[str]:
     """List device strings accepted by create()."""
     out: List[str] = ["best"] if torch.cuda.is_available() else []
@@ -86,4 +93,4 @@ def available_devices() -> List[str]:
 
 
 __all__ = ["DeviceSpec", "parse_device", "resolve_torch_device",
-           "resolve_device", "available_devices"]
+           "resolve_device", "device_scope", "available_devices"]

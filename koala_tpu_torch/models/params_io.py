@@ -139,12 +139,15 @@ def default_model_path() -> str:
 
 def params_from_numpy(tree, device, kind: str = None) -> torch.nn.Module:
     """Parameter tree of numpy arrays -> the port's parameter module on
-    ``device``. ``kind`` defaults to what the tree's keys say."""
-    from . import identity, mask_gru
+    ``device``. ``kind`` is the model file's (``config["kind"]``); without
+    it, a tree with a ``gru`` key is a mask_gru model and one with only the
+    placeholder leaf an identity model (mmse has the same one: pass the kind)."""
+    from . import identity, mask_gru, mmse
 
     if kind is None:
         kind = "mask_gru" if "gru" in tree else "identity"
-    module = {"mask_gru": mask_gru.MaskGRU, "identity": identity.Identity}[kind]
+    module = {"mask_gru": mask_gru.MaskGRU, "mmse": mmse.MMSE,
+              "identity": identity.Identity}[kind]
     return module(tree).to(torch.device(device))
 
 

@@ -5,7 +5,8 @@ its implementation, behind one contract:
     step(params, state, re, im, config)           -> (state', mask)
     apply_sequence(params, state, re, im, config) -> (state', masks)
 
-Families ported so far: ``mask_gru`` (the flagship) and ``identity``.
+Families: ``mask_gru`` (the flagship), ``mmse`` (the parameter-free
+baseline) and ``identity``.
 """
 
 from __future__ import annotations
@@ -13,10 +14,11 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from ..errors import ERROR_STACK, KoalaKeyError, raise_with_stack
-from . import identity, mask_gru
+from . import identity, mask_gru, mmse
 
 MODEL_REGISTRY: Dict[str, Any] = {
     "mask_gru": mask_gru,
+    "mmse": mmse,
     "identity": identity,
 }
 

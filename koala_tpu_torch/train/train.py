@@ -9,8 +9,11 @@ kernel wrappers of ``ops/kernels`` (GRU ``return_hidden`` kernel forward,
 floor kernel forward, plain backward passes).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
-without a card they raise ``KoalaInvalidArgumentError``. The data-parallel
-path of ``make_train_step(..., mesh=...)`` is not ported yet and raises.
+without a card they raise ``KoalaInvalidArgumentError``. With a ``mesh``
+(``parallel/mesh.py``), ``make_train_step`` and ``train`` are data-parallel
+replicas, one device a process: each process computes the loss on its slice
+of the global batch, and one all-reduce a step averages the gradients (and
+the loss) before the optimizer, which runs replicated.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import DELAY_SAMPLE, FRAME_LENGTH
 from ..device import resolve_device
@@ -29,6 +33,7 @@ from ..engine.core import make_engine
 from ..errors import ERROR_STACK, KoalaInvalidArgumentError, raise_with_stack
 from ..models import mask_gru
 from ..models.params_io import params_from_numpy
+from ..parallel.mesh import Mesh
 from ..ops import stft as stft_ops
 from .data import MixtureSampler
 
@@ -181,24 +186,54 @@ def make_optimizer(params, lr: float, steps: int) -> ClippedAdamW:
     return ClippedAdamW(params.parameters(), warmup_cosine_schedule(lr, steps))
 
 
-def make_train_step(config: Dict[str, Any], optimizer, mesh=None) -> Callable:
+def make_train_step(config: Dict[str, Any], optimizer, mesh: Optional[Mesh] = None) -> Callable:
     """-> train_step(params, noisy, clean) -> loss (a detached scalar
     tensor). One forward and backward pass and one optimizer update, in
     place on ``params``. ``optimizer`` has ``zero_grad()`` and ``step()``
     (``make_optimizer``, or any ``torch.optim`` optimizer over the
-    parameters). The data-parallel ``mesh`` path is not ported yet."""
-    if mesh is not None:
-        ERROR_STACK.push("make_train_step(mesh=...): data-parallel training is not "
-                         "available in this package yet")
-        raise_with_stack(KoalaInvalidArgumentError, "Invalid mesh argument")
+    parameters).
+
+    With a ``mesh`` of one device (this process's), ``noisy`` and ``clean``
+    are the global batch: the step takes this process's rows
+    (``Mesh.local_rows``) to its device, and after the backward pass one
+    ``all_reduce(SUM)`` over the mesh's process group carries the flattened
+    gradients and the loss, divided by the number of processes. The
+    optimizer then clips and applies the averaged gradient on every process
+    alike, so the parameters stay bit-identical across processes. The
+    analog of the JAX package's ``shard_map`` path, with no collective but
+    that one."""
     loss_fn = make_loss_fn(config)
+    if mesh is None:
+        def train_step(params, noisy, clean):
+            optimizer.zero_grad()
+            loss = loss_fn(params, noisy, clean)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+
+        return train_step
+
+    if not isinstance(mesh, Mesh) or len(mesh.devices) != 1:
+        ERROR_STACK.push("make_train_step(mesh=...): expected a parallel.Mesh with one device "
+                         "a process, got %r" % (mesh,))
+        raise_with_stack(KoalaInvalidArgumentError, "Invalid mesh argument")
+    device = mesh.devices[0]
 
     def train_step(params, noisy, clean):
+        lo, hi = mesh.local_rows(noisy.shape[0])
         optimizer.zero_grad()
-        loss = loss_fn(params, noisy, clean)
+        loss = loss_fn(params, noisy[lo:hi].to(device), clean[lo:hi].to(device))
         loss.backward()
+        leaves = [p for p in params.parameters() if p.requires_grad]
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in leaves] + [loss.detach().reshape(1)])
+        if mesh.group is not None:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+        flat /= mesh.world
+        for p, g in zip(leaves, torch.split(flat[:-1], [p.numel() for p in leaves])):
+            p.grad = g.view_as(p)
         optimizer.step()
-        return loss.detach()
+        return flat[-1]
 
     return train_step
 
@@ -226,9 +261,11 @@ def train(speech_bank, noise_bank, steps: int = 4000, batch: int = 64,
           config: Optional[Dict[str, Any]] = None, mesh=None, log_every: int = 200,
           params=None, device: str = "best") -> Tuple[Any, Dict[str, Any]]:
     """Train the mask_gru model on batches mixed on the host
-    (``MixtureSampler``); returns (params, config)."""
+    (``MixtureSampler``); returns (params, config). With a ``mesh``, every
+    process draws the same global batch from ``seed`` and trains on its
+    slice, on the mesh's device (``device`` is then not used)."""
     cfg = dict(mask_gru.DEFAULT_CONFIG, **(config or {}))
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     params = _trainable_params(params, cfg, seed, dev)
     train_step = make_train_step(cfg, make_optimizer(params, lr, steps), mesh)
     sampler = MixtureSampler(speech_bank, noise_bank, segment_frames=segment_frames, seed=seed)
@@ -236,8 +273,10 @@ def train(speech_bank, noise_bank, steps: int = 4000, batch: int = 64,
     t0 = time.perf_counter()
     for step_i in range(steps):
         noisy, clean = sampler.sample(batch)
-        loss = train_step(params, torch.as_tensor(noisy, device=dev),
-                          torch.as_tensor(clean, device=dev))
+        # with a mesh the step moves only this process's rows to the device
+        on = None if mesh is not None else dev
+        loss = train_step(params, torch.as_tensor(noisy, device=on),
+                          torch.as_tensor(clean, device=on))
         if log_every and (step_i % log_every == 0 or step_i == steps - 1):
             _log(step_i, loss, t0)
     return params.requires_grad_(False), cfg

@@ -406,3 +406,135 @@ def test_public_surface_launches_the_kernels(cuda_device):
     assert out.shape == enh.shape == pcm.shape
     cpu = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=3, device="cpu")
     assert snr_db(cpu.process_chunk(pcm).astype(np.float64), out.astype(np.float64)) > 35.0
+
+
+def _pull_frames(server, streams, frames, timeout=60.0):
+    import time
+
+    got = np.zeros((streams, frames, 256), np.int16)
+    have = np.zeros(streams, np.int64)
+    deadline = time.time() + timeout
+    while have.sum() < streams * frames and time.time() < deadline:
+        rows, cnt = server.pull_block(frames)
+        for i in np.nonzero(cnt)[0]:
+            c = min(int(cnt[i]), frames - int(have[i]))
+            got[i, have[i]:have[i] + c] = rows[i, :c]
+            have[i] += c
+        time.sleep(0.001)
+    assert have.sum() == streams * frames, have
+    return got
+
+
+@pytest.mark.cuda
+def test_server_backlog_rounds_launch_the_kernels(cuda_device):
+    """Full-chunk backlog rounds of the StreamingServer on the card run the
+    sequence engine (floor + GRU kernels), near process_chunk on the card."""
+    from koala_tpu_torch.serve import StreamingServer
+
+    streams, frames = 8, 32
+    rows = (np.random.default_rng(5).standard_normal((streams, frames, 256)) * 3000
+            ).astype(np.int16)
+    server = StreamingServer(ACCESS_KEY, num_streams=streams, device="gpu", chunk_frames=8,
+                             capacity_frames=frames)
+    try:
+        before = (floor.launches, gru.launches)
+        assert server.push_block(rows, np.full(streams, frames, np.int32)) == streams * frames
+        got = _pull_frames(server, streams, frames)
+        assert floor.launches > before[0] and gru.launches > before[1]
+    finally:
+        server.close()
+    kb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=streams, device="gpu")
+    ref = kb.process_chunk(rows.reshape(streams, -1))
+    assert snr_db(ref.astype(np.float64), got.reshape(streams, -1).astype(np.float64)) > 35.0
+
+
+@pytest.mark.cuda
+def test_server_single_frame_rounds_equal_batch_process(cuda_device):
+    """Single-frame rounds (step_masked on the card, int16 converted on the
+    card) give KoalaBatch.process's bits at the same pool size."""
+    import time
+
+    from koala_tpu_torch.serve import StreamingServer
+
+    streams, frames = 8, 12
+    rows = (np.random.default_rng(6).standard_normal((streams, frames, 256)) * 3000
+            ).astype(np.int16)
+    server = StreamingServer(ACCESS_KEY, num_streams=streams, device="gpu")
+    try:
+        for j in range(frames):
+            server.push_block(rows[:, j:j + 1], np.ones(streams, np.int32))
+            time.sleep(0.01)
+        got = _pull_frames(server, streams, frames)
+    finally:
+        server.close()
+    kb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=streams, device="gpu")
+    ref = np.stack([kb.process(rows[:, j]) for j in range(frames)], axis=1)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_step_equals_unsharded_step(cuda_device):
+    """make_train_step(mesh=...) under a one-rank NCCL group: the loss and
+    the weights after a step are the unsharded step's bit for bit; and a
+    CorpusRunner wash on that group sums its audio seconds on the card."""
+    import copy
+    import importlib
+    import socket
+
+    import torch.distributed as dist
+
+    from koala_tpu_torch.parallel import make_mesh
+
+    # the package re-exports the function ``train`` under the submodule's name
+    trainer = importlib.import_module("koala_tpu_torch.train.train")
+    cfg = dict(mask_gru.TRAIN_CONFIG, hidden=128)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    init = mask_gru.init_params(gen, cfg)
+    noisy = torch.randn((8, 12 * 256), generator=gen, device=cuda_device) * 0.1
+    clean = noisy * 0.5
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:%d" % port, rank=0,
+                            world_size=1)
+    try:
+        out = []
+        for mesh in (None, make_mesh(["gpu:0"])):
+            p = copy.deepcopy(init).to(cuda_device).requires_grad_(True)
+            step = trainer.make_train_step(cfg, trainer.make_optimizer(p, 1e-3, 10), mesh=mesh)
+            out.append((step(p, noisy, clean), p))
+        from koala_tpu_torch.parallel import CorpusRunner
+
+        runner = CorpusRunner(params_io.default_model_path(), global_batch=2,
+                              utterance_samples=16 * 256, mesh=make_mesh(["gpu:0"]))
+        pcm = np.random.default_rng(9).standard_normal((2, 16 * 256)).astype(np.float32) * 0.1
+        report = runner.wash([pcm] * 3, warmup=1)
+    finally:
+        dist.destroy_process_group()
+    assert report["batches"] == 2 and report["chips"] == 1
+    assert report["audio_seconds"] == 2 * 2 * 16 * 256 / 16000.0
+    (l0, p0), (l1, p1) = out
+    assert torch.equal(l0, l1)
+    for a, b in zip(p0.parameters(), p1.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_trace_records_the_card_kernels(cuda_device, tmp_path):
+    """profiling.trace on a card records CUDA activity: the floor and GRU
+    kernels of a process_chunk call appear as kernel events."""
+    import json
+
+    from koala_tpu_torch import profiling
+
+    pcm = (np.random.default_rng(8).standard_normal((2, 16 * 256)) * 3000).astype(np.int16)
+    kb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=2, device="gpu")
+    kb.process_chunk(pcm)                       # warm-up outside the trace
+    with profiling.trace(str(tmp_path)) as log_dir:
+        kb.process_chunk(pcm)
+        torch.cuda.synchronize()
+    with open("%s/%s" % (log_dir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("gru" in k for k in kernels) and any("floor" in k for k in kernels), kernels[:20]

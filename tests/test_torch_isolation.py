@@ -1,6 +1,7 @@
 """koala_tpu_torch stands alone: it imports neither jax, optax nor koala_tpu,
 and its entry points never carry on on the CPU when a card was asked for."""
 
+import json
 import os
 import re
 import subprocess
@@ -59,6 +60,67 @@ def test_train_script_imports_no_jax_optax_or_koala_tpu():
     assert "--segment-frames" in r.stdout and "--allow-known-gaps" in r.stdout
 
 
+SERVING_MODULES = ["serve", "hostlib", "websocket", "profiling", "parallel", "parallel.mesh",
+                   "parallel.runner", "models.mmse"]
+FRONT_SCRIPTS = [os.path.join(ROOT, "scripts", s)
+                 for s in ("serve_tcp_torch.py", "serve_web_torch.py")]
+
+
+@pytest.fixture(scope="module")
+def serving_imports():
+    """One interpreter imports the serving modules one after another and
+    records, after each, which of jax, optax and koala_tpu are loaded:
+    imports only accumulate, so a module that pulled one in shows it."""
+    code = ("import sys, json, importlib\nseen = {}\n"
+            "for m in %r:\n"
+            "    importlib.import_module('koala_tpu_torch.' + m)\n"
+            "    seen[m] = [n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'optax', 'koala_tpu')]\n"
+            "print(json.dumps(seen))" % SERVING_MODULES)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_module_import_leaves_no_jax_optax_or_koala_tpu(module, serving_imports):
+    assert serving_imports[module] == []
+
+
+@pytest.mark.parametrize("script", FRONT_SCRIPTS)
+def test_front_script_imports_no_jax_optax_or_koala_tpu(script):
+    """A front's help text, then the modules its functions import: none of
+    the three is loaded."""
+    code = ("import sys, runpy; sys.argv = [%r, '--help']\n"
+            "try:\n    runpy.run_path(%r, run_name='__main__')\n"
+            "except SystemExit:\n    pass\n"
+            "import koala_tpu_torch.serve, koala_tpu_torch.websocket\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', "
+            "'koala_tpu')]; print(bad); sys.exit(1 if bad else 0)"
+            % (os.path.basename(script), script))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "--device" in r.stdout and "--streams" in r.stdout
+
+
+def test_serving_and_parallel_entry_points_ask_for_the_card(monkeypatch):
+    """With no device argument the server, the corpus runner and the mesh
+    take the card, and raise the typed error without one."""
+    from koala_tpu_torch.models.params_io import default_model_path
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh
+    from koala_tpu_torch.serve import StreamingServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(KoalaInvalidArgumentError):
+        StreamingServer(ACCESS_KEY, num_streams=2)
+    with pytest.raises(KoalaInvalidArgumentError):
+        CorpusRunner(default_model_path(), global_batch=2, utterance_samples=1024)
+    with pytest.raises(KoalaInvalidArgumentError):
+        make_mesh()
+
+
 def _package_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -69,9 +131,9 @@ def _package_sources():
 def test_source_names_no_jax_or_koala_tpu():
     """No ``import jax`` or ``import optax`` and no ``koala_tpu`` other than
     ``koala_tpu_torch`` anywhere in the package's sources (Python and CUDA)
-    nor in the training script."""
+    nor in the training script and the network fronts."""
     bad = []
-    paths = list(_package_sources()) + [TRAIN_SCRIPT]
+    paths = list(_package_sources()) + [TRAIN_SCRIPT] + FRONT_SCRIPTS
     assert all(os.path.join(PKG, "train", m + ".py") in paths for m in TRAIN_MODULES)
     for path in paths:
         with open(path) as fh:

@@ -1,4 +1,4 @@
-"""Models of the port (models/mask_gru.py, identity.py, params_io.py)
+"""Models of the port (models/mask_gru.py, mmse.py, identity.py, params_io.py)
 against koala_tpu on the same weights and spectra."""
 
 import json
@@ -12,11 +12,13 @@ import jax
 import jax.numpy as jnp
 
 from koala_tpu.models import mask_gru as jmask
+from koala_tpu.models import mmse as jmmse
 from koala_tpu.models import params_io as jio
 from koala_tpu.ops import stft as jstft
 from koala_tpu_torch.constants import FRAME_LENGTH
 from koala_tpu_torch.engine.core import make_engine
 from koala_tpu_torch.models import mask_gru as tmask
+from koala_tpu_torch.models import mmse as tmmse
 from koala_tpu_torch.models import params_io as tio
 
 from torch_ref import jax_params, to_numpy
@@ -154,7 +156,7 @@ def _golden_profile(kind, tree, cfg):
     return [float(np.sqrt(np.mean(f ** 2))) for f in out]
 
 
-@pytest.mark.parametrize("kind", ["identity", "mask_gru"])
+@pytest.mark.parametrize("kind", ["identity", "mmse", "mask_gru"])
 def test_golden_profiles(kind):
     """tests/golden/rms_profiles.json, with the weights of
     init_params(PRNGKey(0)) (tests/test_golden.py), atol 2e-3."""
@@ -163,8 +165,105 @@ def test_golden_profiles(kind):
     if kind == "identity":
         from koala_tpu.models import identity
         tree, cfg = {"empty": np.zeros((1,), np.float32)}, identity.DEFAULT_CONFIG
+    elif kind == "mmse":
+        tree, cfg = {"empty": np.zeros((1,), np.float32)}, jmmse.DEFAULT_CONFIG
     else:
         tree, cfg = jax_params(jmask.DEFAULT_CONFIG, 0), jmask.DEFAULT_CONFIG
     got = _golden_profile(kind, tree, cfg)
     assert len(got) == len(want)
     np.testing.assert_allclose(got, want, atol=2e-3)
+
+
+# mmse: a straight transcription; XLA's fusion reorders a few operations, so
+# most values agree bit for bit and the rest within float32 rounding
+# (measured mask max |err| 7.2e-7 at B = 4, T = 200).
+MMSE_ATOL = 1e-5
+
+
+def _mmse_spectra(seed, t):
+    rng = np.random.default_rng(seed)
+    # loud and quiet stretches, so that the gain leaves its floor and the
+    # noise tracker both adapts and holds
+    env = np.where((np.arange(t) // 25) % 2 == 0, 0.02, 0.3).astype(np.float32)
+    frames = rng.standard_normal((4, t, 512)).astype(np.float32) * env[None, :, None]
+    re, im = jstft.stft_frame(jnp.asarray(frames))
+    return np.array(re), np.array(im)
+
+
+def _assert_mmse_states_close(t_state, j_state):
+    assert set(t_state) == set(j_state) == {"noise", "prev_gain2_post", "count"}
+    for k in t_state:
+        # 1e-5 relative to the leaf's scale: a posterior SNR near 1e-18
+        # differs by a few float32 roundings of the terms around it
+        ref = np.asarray(j_state[k])
+        np.testing.assert_allclose(t_state[k].numpy(), ref, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(ref).max()), err_msg=k)
+
+
+def test_mmse_apply_sequence_matches_jax():
+    re, im = _mmse_spectra(7, 200)
+    cfg = jmmse.DEFAULT_CONFIG
+    j_state, j_mask = jmmse.apply_sequence(jmmse.init_params(), jmmse.init_state((4,), cfg),
+                                           jnp.asarray(re), jnp.asarray(im), cfg)
+    t_state, t_mask = tmmse.apply_sequence(tmmse.init_params(),
+                                           tmmse.init_state((4,), cfg, "cpu"),
+                                           torch.as_tensor(re), torch.as_tensor(im), cfg)
+    assert t_mask.shape == (4, 200, 257)
+    np.testing.assert_allclose(t_mask.numpy(), np.asarray(j_mask), rtol=0, atol=MMSE_ATOL)
+    assert float(t_mask.max()) > 0.5 and float(t_mask.min()) == np.float32(cfg["gain_floor"])
+    _assert_mmse_states_close(t_state, j_state)
+
+
+def test_mmse_step_matches_jax():
+    re, im = _mmse_spectra(8, 30)
+    cfg = jmmse.DEFAULT_CONFIG
+    j_state, t_state = jmmse.init_state((4,), cfg), tmmse.init_state((4,), cfg, "cpu")
+    for i in range(re.shape[1]):
+        j_state, j_mask = jmmse.step(None, j_state, jnp.asarray(re[:, i]),
+                                     jnp.asarray(im[:, i]), cfg)
+        t_state, t_mask = tmmse.step(None, t_state, torch.as_tensor(re[:, i]),
+                                     torch.as_tensor(im[:, i]), cfg)
+        np.testing.assert_allclose(t_mask.numpy(), np.asarray(j_mask), rtol=0, atol=MMSE_ATOL)
+    _assert_mmse_states_close(t_state, j_state)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_mmse_model_file_crosses_packages(writer, tmp_path):
+    """An mmse ``.pv`` written by either package loads in both, and the
+    port's loader builds the mmse parameter module from its kind."""
+    from koala_tpu_torch.engine.stream import load_model
+
+    path = str(tmp_path / "mmse.pv")
+    if writer == "jax":
+        jio.save_params(path, jmmse.init_params(), jmmse.DEFAULT_CONFIG)
+    else:
+        tio.save_params(path, tmmse.init_params(), tmmse.DEFAULT_CONFIG)
+    j_tree, j_cfg = jio.load_params(path)
+    t_tree, t_cfg = tio.load_params(path)
+    assert t_cfg == j_cfg == jmmse.DEFAULT_CONFIG
+    np.testing.assert_array_equal(t_tree["empty"], np.asarray(j_tree["empty"]))
+    engine, params = load_model(path, "cpu")
+    assert engine.kind == "mmse" and isinstance(params, tmmse.MMSE)
+    assert isinstance(tio.params_from_numpy(t_tree, "cpu", "mmse"), tmmse.MMSE)
+
+
+def test_mmse_serves_through_create_and_create_batch(tmp_path):
+    """An mmse model file through the public surface of both packages: the
+    same enhanced audio within 2 LSB (tests/test_serve.py's bound)."""
+    import koala_tpu
+    import koala_tpu_torch
+
+    from torch_ref import ACCESS_KEY
+
+    path = str(tmp_path / "mmse.pv")
+    jio.save_params(path, jmmse.init_params(), jmmse.DEFAULT_CONFIG)
+    rng = np.random.default_rng(9)
+    pcm = (rng.standard_normal((2, 20 * FRAME_LENGTH)) * 4000).astype(np.int16)
+    want = np.asarray(koala_tpu.create(ACCESS_KEY, model_path=path, device="cpu").enhance(pcm[0]))
+    got = koala_tpu_torch.create(ACCESS_KEY, model_path=path, device="cpu").enhance(pcm[0])
+    assert np.abs(got.astype(np.int32) - want).max() <= 2
+    jb = koala_tpu.create_batch(ACCESS_KEY, batch_size=2, model_path=path, device="cpu")
+    tb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=2, model_path=path, device="cpu")
+    out = tb.process_chunk(pcm)
+    assert np.any(out != 0)
+    assert np.abs(out.astype(np.int32) - np.asarray(jb.process_chunk(pcm))).max() <= 2

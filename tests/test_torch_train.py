@@ -4,6 +4,7 @@ schedule, the evaluation harness, and a trained model crossing packages."""
 
 import importlib
 import os
+import time
 
 import numpy as np
 import pytest
@@ -269,8 +270,71 @@ def test_params_to_numpy_inverts_params_from_numpy():
 
 
 def test_mesh_path_raises_typed_error():
+    """A mesh argument that is not a parallel.Mesh of one device a process
+    is refused with the typed error."""
+    from koala_tpu_torch.parallel import make_mesh
+
     with pytest.raises(KoalaInvalidArgumentError):
         ttrain.make_train_step(SMALL, None, mesh=object())
+    with pytest.raises(KoalaInvalidArgumentError):
+        ttrain.make_train_step(SMALL, None, mesh=make_mesh(["cpu", "cpu"]))
+
+
+def test_data_parallel_step_matches_one_process(batch, tmp_path):
+    """Two gloo processes, each on its half of the global batch, against the
+    one-process step on the whole batch: the loss within rtol 1e-4 and the
+    averaged gradients within max|d| / max(|g|, 1e-3) < 1e-2
+    (tests/test_train.py's sharded-step tolerances), and the parameters
+    bit-identical across the processes after two steps."""
+    import torch.multiprocessing as tmp
+
+    from torch_ref import RecordingOptimizer, data_parallel_worker, free_port
+
+    noisy, clean = batch
+    tree = jax_params(SMALL, 11)
+    params = tparams_io.params_from_numpy(tree, "cpu").requires_grad_(True)
+    opt = RecordingOptimizer(ttrain.make_optimizer(params, 1e-3, 10))
+    loss = float(ttrain.make_train_step(SMALL, opt)(params, torch.as_tensor(noisy),
+                                                  torch.as_tensor(clean)))
+    want = {n: g.numpy() for (n, _), g in zip(params.named_parameters(), opt.grads[0])}
+
+    ctx = tmp.get_context("spawn")
+    out = str(tmp_path / "rank%d.npz")
+    port = free_port()
+    procs = [ctx.Process(target=data_parallel_worker, daemon=True,
+                         args=(r, 2, port, tree, SMALL, noisy, clean, 2, out)) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + 120
+    for p in procs:
+        p.join(timeout=max(0.0, deadline - time.time()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+    assert not alive and all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+
+    ranks = [np.load(out % r) for r in range(2)]
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"][0], loss, rtol=1e-4)
+        for name, g in want.items():
+            assert np.max(np.abs(r["grad/" + name] - g)) / max(np.abs(g).max(), 1e-3) < 1e-2, name
+    names = [k for k in ranks[0].files if k != "losses"]
+    for k in names + ["losses"]:
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+
+
+def test_train_with_a_one_process_mesh_is_the_plain_trainer(banks):
+    """train(..., mesh=...) with one process and one CPU device: the step
+    takes all rows and the reduction divides by one, so the weights equal
+    those of train(device="cpu") bit for bit."""
+    from koala_tpu_torch.parallel import make_mesh
+
+    speech, noise = banks
+    kw = dict(steps=2, batch=4, segment_frames=4, config=SMALL, log_every=0, seed=5)
+    a, _ = ttrain.train(speech, noise, device="cpu", **kw)
+    b, _ = ttrain.train(speech, noise, mesh=make_mesh(["cpu"]), **kw)
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), name
 
 
 @pytest.mark.parametrize("entry", ["train", "train_on_device"])

@@ -70,3 +70,57 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+class RecordingOptimizer:
+    """Wraps an optimizer and keeps a copy of the gradients that each
+    ``step`` applies (before the optimizer's own clipping)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.grads = []
+
+    def zero_grad(self):
+        self.inner.zero_grad()
+
+    def step(self):
+        self.grads.append([p.grad.detach().clone() for p in self.inner.params])
+        self.inner.step()
+
+
+def data_parallel_worker(rank, world, port, tree, cfg, noisy, clean, steps, out_path):
+    """One process of a data-parallel run on the CPU (gloo): ``steps``
+    train steps over the global batch with a mesh of one CPU device; writes
+    the losses, the first step's averaged gradients and the parameters at
+    the end to ``out_path % rank``."""
+    import torch.distributed as dist
+
+    from koala_tpu_torch.models.params_io import params_from_numpy
+    from koala_tpu_torch.parallel import make_mesh
+    from koala_tpu_torch.train.train import make_optimizer, make_train_step
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
+                            rank=rank, world_size=world)
+    try:
+        params = params_from_numpy(tree, "cpu").requires_grad_(True)
+        opt = RecordingOptimizer(make_optimizer(params, 1e-3, 10))
+        step = make_train_step(cfg, opt, mesh=make_mesh(["cpu"]))
+        losses = [float(step(params, torch.as_tensor(noisy), torch.as_tensor(clean)))
+                  for _ in range(steps)]
+        names = [n for n, _ in params.named_parameters()]
+        np.savez(out_path % rank, losses=np.asarray(losses),
+                 **{"grad/" + n: g.numpy() for n, g in zip(names, opt.grads[0])},
+                 **{"param/" + n: p.detach().numpy() for n, p in params.named_parameters()})
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
