@@ -18,9 +18,12 @@
    launch bit for bit. The floor kernel is also held bit-identical at a
    column count that is no multiple of 32, at T = 1 and over several slabs;
    the fused kernels against their plain version at B = 1, 17, 128, 300
-   (T = 40), at T = 8 and over two workspace segments, each from a state that
-   is not zero. The GRU kernel is also held against its plain version at B = 1, 17, 128
-   and 300, at H = 64 with one layer and H = 128 with three, and at T = 0;
+   (T = 40), at T = 8, over two workspace segments, and at B = 512 x T = 64
+   (the bench's batch, two segments), each from a state that is not zero.
+   The GRU kernel is also held against its plain version at B = 1, 17, 128
+   and 300, at H = 64 with one layer and H = 128 with three, at T = 0, and
+   in its wider layouts: 512 x 3 in two layer groups, 256 x 17 in three with
+   units spilled into shared memory;
    two launches must give the same bits, a sequence in two chunks the bits
    of one run, and the plan's shared-memory size must be the kernel's.
    Times kernel, plain version and (where one exists) a library call with
@@ -68,7 +71,26 @@
    ``make_train_step(mesh=...)`` under a one-rank NCCL group at
    ``TRAIN_CONFIG``, B = 64 x 63: loss and weights after one step
    bit-identical to the unsharded step, and its time.
-8. Prints one ``{"kernels": [...]}`` line (each kernel's launches by path
+8. Runs ``bench_torch.py``'s phases in this process, again with the counters
+   set to 0 just before and read just after: the engine number through
+   ``Engine.sequence_fast`` at B = 512 x T = 376 (the fused entry, which must
+   make 35 device launches a call: 7 workspace segments of 5 stages), 5 timed
+   calls; the StreamingServer at 128 streams, chunks of 64, for 2 s, and its
+   latency at 25/50/100% occupancy; the PCIe link; one stream's step, its
+   device time from a CUDA graph of chained steps. Prints bench.py's record
+   as its own JSON line.
+9. The gate of the GRU kernel: seeded ``init_params`` models run
+   ``KoalaBatch.process_chunk`` and ``enhance`` at B = 64 x 64 hops on the
+   card, >= 35 dB from the port on the CPU. Hidden 384 x 2 and 512 x 3 (two
+   layer groups) have a launch plan: the GRU kernel and the fused entry
+   launch. Hidden 768 x 3 has none, nor does koala_tpu's kernel take it: no
+   raise, the floor kernel launched and the GRU kernel not, one warning.
+   512 x 3 and 768 x 3 also take one ``train_on_device`` step at B = 8, the
+   first through the GRU kernel's ``return_hidden`` variant.
+10. ``demo/koala_demo_file_torch.py --device gpu`` as a subprocess on the
+   repository's 5.9 s dev mix: >= 35 dB from the same demo with ``--device
+   cpu``, and its real-time factor.
+11. Prints one ``{"kernels": [...]}`` line (each kernel's launches by path
    and in all), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -81,8 +103,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import importlib
+import importlib.util
 import io
 import json
+import logging
 import os
 import re
 import statistics
@@ -118,6 +142,13 @@ LOSS_GRAD_COS = 0.99           # ... and its per-leaf gradient cosine
 SERVE_CHUNK = 8                # the server's backlog rounds: 376 = 47 full chunks
 LIVE_S = 3.0                   # live cadence: one frame a stream every 16 ms
 TCP_FRAMES = 128               # the TCP round trip: 2.048 s, 16 full chunks
+BENCH_B, BENCH_ITERS = 512, 5  # bench_torch's default batch, fewer timed calls
+BENCH_SERVE = dict(serve_streams=128, serve_secs=2.0, serve_chunk=64)
+# 7 workspace segments (segment_hops(512, frame_bytes(384, 32)) = 58 hops) of 5 stages
+BENCH_FUSED_LAUNCHES = 35
+GATE_B, GATE_T = 64, 64        # the gate phase's process_chunk
+# (hidden, layers, has a GRU launch plan, one train step) of the gate phase
+GATE_MODELS = ((384, 2, True, False), (512, 3, True, True), (768, 3, False, True))
 
 
 def fail(msg: str) -> None:
@@ -261,6 +292,7 @@ def gru_launch_keys(gru, x, layers):
     n = plan.barriers(x.shape[0])
     return {"sequential_floor_ms": time_ms(lambda: gru.grid_barriers(plan, n, x.device), 10),
             "barriers": n, "grid": [plan.groups, plan.slices], "blocks": plan.blocks,
+            "layer_groups": plan.layer_groups, "spilled_units": plan.spilled_units,
             "slice_width": plan.slice_width, "chunk_rows": plan.chunk_rows,
             "passes": plan.passes, "smem_bytes": plan.smem_bytes}
 
@@ -277,20 +309,23 @@ def gru_shape_checks(gru, lib, dev, weights):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def random_weights(h, layers):
-        return ((randn(layers, h, 3 * h) * (1.5 / h ** 0.5)).bfloat16(), randn(layers, 3 * h) * 0.1,
-                (randn(layers, h, 3 * h) * (1.5 / h ** 0.5)).bfloat16(), randn(layers, 3 * h) * 0.1)
+    def random_weights(h, layers, gain=1.5):
+        return ((randn(layers, h, 3 * h) * (gain / h ** 0.5)).bfloat16(), randn(layers, 3 * h) * 0.1,
+                (randn(layers, h, 3 * h) * (gain / h ** 0.5)).bfloat16(), randn(layers, 3 * h) * 0.1)
 
     model_h, model_layers = weights[0].shape[1], weights[0].shape[0]
     cases = [(12, 1, model_h, model_layers, weights), (9, 17, model_h, model_layers, weights),
              (8, 128, model_h, model_layers, weights), (6, 300, model_h, model_layers, weights),
              (0, 5, model_h, model_layers, weights),
              (16, 40, 64, 1, random_weights(64, 1)), (16, 64, 128, 3, random_weights(128, 3)),
-             (5, 300, 128, 3, random_weights(128, 3))]
+             (5, 300, 128, 3, random_weights(128, 3)),
+             # two layer groups; three with units spilled into shared memory (a
+             # contractive gain: deeper random stacks amplify a rounding flip)
+             (9, 64, 512, 3, random_weights(512, 3)), (6, 8, 256, 17, random_weights(256, 17, 0.5))]
     for t_len, b, h, layers, w in cases:
         h0, x = randn(layers, b, h) * 0.2, (randn(t_len, b, h) * 0.3).bfloat16()
         plan = gru.plan_for(x, layers)
-        theirs = lib.koala_gru_smem_bytes(h, layers, plan.slice_width, plan.chunk_rows)
+        theirs = lib.koala_gru_smem_bytes(h, plan.block_layers, plan.slice_width, plan.chunk_rows)
         if theirs != plan.smem_bytes or plan.smem_bytes > gru.H100_SMEM_BYTES:
             fail("gru plan: %d bytes of shared memory, the kernel lays out %d"
                  % (plan.smem_bytes, theirs))
@@ -306,9 +341,10 @@ def gru_shape_checks(gru, lib, dev, weights):
         errs = [float((a.float() - r.float()).abs().max()) if a.numel() else 0.0
                 for a, r in ((y0, ry), (hf0, rhf), (hs1, rhs))]
         db = snr_db(ry.float(), y0.float()) if t_len else float("inf")
-        print("gru T=%d B=%d H=%d L=%d (%d x %d blocks, %d rows a chunk, %d pass%s): y max|err| "
-              "%.4g (%.1f dB), h_final %.4g, hs %.4g"
-              % (t_len, b, h, layers, plan.groups, plan.slices, plan.chunk_rows, plan.passes,
+        print("gru T=%d B=%d H=%d L=%d (%d x %d x %d blocks, %d spilled units, %d rows a chunk, "
+              "%d pass%s): y max|err| %.4g (%.1f dB), h_final %.4g, hs %.4g"
+              % (t_len, b, h, layers, plan.groups, plan.layer_groups, plan.slices,
+                 plan.spilled_units, plan.chunk_rows, plan.passes,
                  "" if plan.passes == 1 else "es", errs[0], db, errs[1], errs[2]))
         if max(errs) > GRU_MAX_ABS or db < GRU_SNR_DB:
             fail("GRU kernel outside its tolerance at T=%d B=%d H=%d L=%d" % (t_len, b, h, layers))
@@ -325,6 +361,18 @@ def gru_shape_checks(gru, lib, dev, weights):
     if not (torch.equal(y, y2) and torch.equal(hs, hs2) and torch.equal(hf, hf2)):
         fail("GRU kernel: two launches on the same inputs differ")
     print("gru: chunked [0:11]+[11:29] equals continuous, and launch equals launch, bit for bit")
+    # the two-layer-group layout at the main path's T and B: its time beside its bound
+    h, layers = 512, 3
+    w = random_weights(h, layers)
+    h0, x = randn(layers, B, h) * 0.2, (randn(T, B, h) * 0.3).bfloat16()
+    ms = time_ms(lambda: gru.gru_stack(h0, x, *w), 10)
+    bound = gru_bound(T, B, h, layers, hidden_out=False)
+    keys = gru_launch_keys(gru, x, layers)
+    print("gru wide layout H=%d L=%d at T=%d B=%d (%d layer groups, %d blocks, %d passes): "
+          "ms %.4f bound_ms %.4f (%s) sequential_floor_ms %.4f (%d barriers) on %s"
+          % (h, layers, T, B, keys["layer_groups"], keys["blocks"], keys["passes"], ms,
+             max(bound.values()), max(bound, key=bound.get), keys["sequential_floor_ms"],
+             keys["barriers"], card_line()))
 
 
 def floor_shape_checks(floor, dev):
@@ -355,14 +403,16 @@ def fused_states_equal(a, b) -> bool:
 def fused_shape_checks(engine_fused, engine, params, cfg, dev):
     """The fused kernels against their plain version away from the main
     path's shape: single-stream, ragged, wide and many-pass batches at
-    T = 40, T = 8, and a T that crosses a workspace segment; each from the
-    state that eight hops leave behind (nothing of it zero)."""
+    T = 40, T = 8, a T that crosses a workspace segment, and the bench's
+    batch B = 512 over two segments; each from the state that eight hops
+    leave behind (nothing of it zero)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(43)
     lay = engine_fused.Layout(cfg)
     per_frame = engine_fused.frame_bytes(lay.hidden, lay.nbp)
     crossing = engine_fused.segment_hops(300, per_frame) + 5
-    for b, t_len in ((1, 40), (17, 40), (128, 40), (300, 40), (64, 8), (300, crossing)):
+    for b, t_len in ((1, 40), (17, 40), (128, 40), (300, 40), (64, 8), (300, crossing),
+                     (512, 64)):
         hops = torch.randn((b, t_len + 8, 256), generator=gen, device=dev) * 0.05
         state, _ = engine_fused.fused_sequence(params, engine.init_state((b,), dev),
                                                hops[:, :8], cfg)
@@ -399,6 +449,33 @@ def fused_shape_checks(engine_fused, engine, params, cfg, dev):
                 fail("fused kernels: two segments differ from two calls cut elsewhere")
             print("fused: %d + %d hops in two segments equal [0:40]+[40:%d] in two calls, bit "
                   "for bit" % (crossing - 5, 5, t_len))
+
+
+def fused_bound(engine_fused, params, cfg, b, t_len):
+    """Least time (ms) of the fused engine over hops [b, t_len, 256] on this
+    card, by bytes (hops in, out, the state both ways, the weights once) and
+    by operations (bf16 products on the tensor cores, the f32 elementwise
+    work beside them)."""
+    ops = engine_fused.prepare(params, cfg)
+    lay = ops["layout"]
+    h, L = lay.hidden, lay.layers
+    w_bytes = sum(ops[n].numel() * ops[n].element_size() for n in (
+        "fwd", "inv", "band", "cepb", "wenc", "benc", "wcep", "wdec", "bdec",
+        "wx", "bx", "wh", "bh"))
+    s_bytes = b * (256 * 4 + 2 * 256 * 4 + 2 * lay.nb * 4 + 2 * L * h * 4)
+    f_bytes = 2 * b * t_len * 256 * 4 + s_bytes + w_bytes
+    # the function's real widths, not the kernel's padded ones: 257 bins
+    # (514 re|im DFT columns), nb bands, 161 cepstral lags, the encoder's
+    # bins + 2 nb + cep inputs, 257 mask columns + the gate
+    bins = cfg["bins"]
+    enc_in = bins + 2 * lay.nb + lay.cep
+    per_row_mm = 2 * (512 * 2 * bins + bins * lay.nb + (bins * 161 if lay.cep else 0) + enc_in * h
+                      + L * 2 * h * 3 * h + h * (bins + 1) + 2 * bins * 512)
+    per_row_ew = bins * 12 + lay.nb * 12 + lay.cep * (161 + h * 2) + h * 12 \
+        + L * h * 20 + bins * 10 + 256 * 2
+    return {"bytes": f_bytes / HBM_BYTES_PER_S * 1e3,
+            "operations": max(b * t_len * per_row_mm / BF16_TENSOR_FLOPS,
+                              b * t_len * per_row_ew / F32_FLOPS) * 1e3}
 
 
 def grad_agreement(name, got, want):
@@ -1002,6 +1079,197 @@ def parallel_phases(dev, card, reset_counts, counts, pcm):
     return corpus_counts, dp_counts
 
 
+def bench_phase(dev, card, reset_counts, counts):
+    """Phase 8: bench_torch.py's phases in this process at the full batch.
+    Prints bench.py's record on a line of its own; returns the launches, and
+    the fused entry's time and bound at the bench's shape."""
+    import bench_torch
+    from koala_tpu_torch.ops.kernels import engine_fused
+
+    torch.cuda.synchronize()
+    reset_counts()
+    record = bench_torch.run(dev, batch=BENCH_B, frames=T, iters=BENCH_ITERS, **BENCH_SERVE)
+    torch.cuda.synchronize()
+    bench_counts = counts()
+    print(json.dumps(record), flush=True)
+    calls = BENCH_ITERS + 1                          # the warm-up call and the timed ones
+    per_call = bench_counts["engine_fused_device"] / max(bench_counts["engine_fused"], 1)
+    print("path bench_torch: B=%d x T=%d, %d fused calls, %g device launches a call (%d "
+          "segments), %.1f audio-s/s; serving %.1f audio-s/s at %d streams; step device "
+          "%.4f ms; launches %s on %s"
+          % (BENCH_B, T, bench_counts["engine_fused"], per_call, record["segments"],
+             record["value"], record["serving_audio_s_per_s_per_chip"],
+             record["serving_streams"], record["step_device_p50_ms"], bench_counts, card))
+    if bench_counts["engine_fused"] != calls or per_call != BENCH_FUSED_LAUNCHES \
+            or record["segments"] * len(engine_fused.STAGES) != BENCH_FUSED_LAUNCHES:
+        fail("the bench's engine calls should each make %d device launches: %s"
+             % (BENCH_FUSED_LAUNCHES, bench_counts))
+    if bench_counts["floor_scan"] < 1 or bench_counts["gru_stack"] < 1:
+        fail("the bench's serving rounds did not launch the floor and GRU kernels: %s"
+             % bench_counts)
+    if record["device"] != torch.cuda.get_device_name(0) or not record["power_limit_w"]:
+        fail("the bench record names no card: %s, %s" % (record["device"],
+                                                         record["power_limit_w"]))
+
+    # the fused entry alone at the bench's shape, on the card's clock
+    engine, params = bench_torch.load_engine(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hops = 0.1 * torch.randn((BENCH_B, T, 256), generator=gen, device=dev)
+    state = engine.init_state((BENCH_B,), dev)
+    with torch.inference_mode():
+        ms = time_ms(lambda: engine_fused.fused_sequence(params, state, hops, engine.config), 5)
+    bound = fused_bound(engine_fused, params, engine.config, BENCH_B, T)
+    at_bench = {"bench_shape": [BENCH_B, T, 256], "bench_ms": ms,
+                "bench_bound_ms": max(bound.values()), "bench_bound_by": max(bound, key=bound.get),
+                "bench_device_launches_per_call": per_call}
+    print("fused at the bench's shape [%d, %d, 256]: %.4f ms a call, bound_ms %.4f (%s), %g "
+          "device launches a call on %s" % (BENCH_B, T, ms, at_bench["bench_bound_ms"],
+                                            at_bench["bench_bound_by"], per_call, card))
+    return bench_counts, at_bench
+
+
+class WarningCount(logging.Handler):
+    """Counts the port's warnings that the GRU kernel is not taken."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.n = 0
+
+    def emit(self, record):
+        if "GRU kernel DISABLED" in record.getMessage():
+            self.n += 1
+
+
+def gate_phase(kt, dev, card, reset_counts, counts):
+    """Phase 9: seeded ``init_params`` models at three widths and depths,
+    each through ``process_chunk`` and ``enhance`` at B = 64 x 64 hops: 384 x
+    2 and 512 x 3 have a launch plan (one and two layer groups) and launch
+    the GRU kernel and the fused entry; 768 x 3 has none (nor does
+    koala_tpu's kernel take it) and runs the scan branch with one warning.
+    512 x 3 and 768 x 3 also take one ``train_on_device`` step at B = 8,
+    through the kernel's ``return_hidden`` variant and through the scan.
+    Returns the launches of every kernel."""
+    from koala_tpu_torch.models import mask_gru as mask_gru_model
+    from koala_tpu_torch.models import params_io
+    from koala_tpu_torch.train import corpus
+
+    trainer = importlib.import_module("koala_tpu_torch.train.train")
+    pcm = mix_streams(GATE_T * 256)
+    launched = {"floor_scan": 0, "gru_stack": 0, "gru_stack_hs": 0, "engine_fused": 0}
+    watch = WarningCount()
+    logging.getLogger("koala_tpu_torch").addHandler(watch)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for hidden, layers, fits, train in GATE_MODELS:
+                cfg = dict(mask_gru_model.TRAIN_CONFIG, hidden=hidden, num_layers=layers)
+                if mask_gru_model.gru_kernel_fits(GATE_B, hidden, layers, sms) is not fits:
+                    fail("gate: a launch plan for hidden %d x %d is %s, not %s"
+                         % (hidden, layers, not fits, fits))
+                path = os.path.join(tmp, "h%d_l%d.pv" % (hidden, layers))
+                params_io.save_params(
+                    path, mask_gru_model.init_params(torch.Generator().manual_seed(5), cfg),
+                    cfg)
+                kb = kt.create_batch(ACCESS_KEY, batch_size=GATE_B, model_path=path,
+                                     device="gpu")
+                torch.cuda.synchronize()
+                reset_counts()
+                out = kb.process_chunk(pcm)
+                chunk_counts = counts()
+                kb.reset()
+                reset_counts()
+                enh = kb.enhance(pcm)
+                enh_counts = counts()
+                kb.delete()
+                cpu = kt.create_batch(ACCESS_KEY, batch_size=4, model_path=path, device="cpu")
+                snr = [snr_db(c.astype(np.float64), o.astype(np.float64))
+                       for c, o in zip(cpu.process_chunk(pcm[:4]), out[:4])]
+                cpu.delete()
+                print("gate: hidden %d x %d layers (launch plan: %s), B=%d x T=%d: "
+                      "process_chunk launches %s, enhance launches %s; card vs CPU %s dB"
+                      % (hidden, layers, fits, GATE_B, GATE_T, chunk_counts, enh_counts,
+                         ["%.2f" % v for v in snr]))
+                if out.shape != pcm.shape or enh.shape != pcm.shape or min(snr) < CHUNK_SNR_DB:
+                    fail("gate: hidden %d x %d on the card: shapes %s %s, %.1f dB from the CPU"
+                         % (hidden, layers, out.shape, enh.shape, min(snr)))
+                if chunk_counts["floor_scan"] != 1 or chunk_counts["gru_stack"] != int(fits):
+                    fail("gate: process_chunk at hidden %d x %d launched %s"
+                         % (hidden, layers, chunk_counts))
+                # with a plan, enhance takes the fused entry over 64 hops (its stages
+                # are its own) and ``sequence`` over the padded 65th: the floor and
+                # GRU kernels; without, the floor kernel and the scan over all 65
+                if (enh_counts["engine_fused"], enh_counts["gru_stack"],
+                        enh_counts["floor_scan"]) != ((1, 1, 1) if fits else (0, 0, 1)):
+                    fail("gate: enhance at hidden %d x %d launched %s"
+                         % (hidden, layers, enh_counts))
+                for k in launched:
+                    launched[k] += chunk_counts[k] + enh_counts[k]
+                if not train:
+                    continue
+                speech = corpus.build_speech_tape(101, 2)
+                noise = corpus.build_noise_tape(202, 2)
+                log = io.StringIO()
+                reset_counts()
+                with contextlib.redirect_stdout(log):
+                    trained, _ = trainer.train_on_device(
+                        speech, noise, steps=1, batch=8, segment_frames=TRAIN_T, config=cfg,
+                        log_every=1, seed=3, device="gpu")
+                torch.cuda.synchronize()
+                train_counts = counts()
+                losses = [float(v) for v in re.findall(r"loss (\S+)", log.getvalue())]
+                print("gate: one train_on_device step at hidden %d x %d, B=8 x T=%d: loss %s, "
+                      "launches %s" % (hidden, layers, TRAIN_T, losses, train_counts))
+                if len(losses) != 1 or not np.isfinite(losses[0]) \
+                        or train_counts["gru_stack_hs"] != int(fits) or not all(
+                            torch.isfinite(p).all() for p in trained.parameters()):
+                    fail("gate: the train step at hidden %d x %d: losses %s, launches %s"
+                         % (hidden, layers, losses, train_counts))
+                for k in launched:
+                    launched[k] += train_counts[k]
+    finally:
+        logging.getLogger("koala_tpu_torch").removeHandler(watch)
+    print("gate: %d warning(s) that the GRU kernel is not taken" % watch.n)
+    if watch.n != 1:
+        fail("gate: %d warnings that the GRU kernel is not taken, not one" % watch.n)
+    return launched
+
+
+def demo_phase(card):
+    """Phase 10: the port's file demo on the card, as a user runs it, against
+    the same demo on the CPU (in this process)."""
+    from koala_tpu_torch.io import read_wav, write_wav
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    audio = os.path.join(here, "resources", "audio_samples")
+    demo = os.path.join(here, "demo", "koala_demo_file_torch.py")
+    speech = read_wav(os.path.join(audio, "speech_dev.wav")).astype(np.int32)
+    noise = read_wav(os.path.join(audio, "noise_dev.wav")).astype(np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        mix = os.path.join(tmp, "mix.wav")
+        write_wav(mix, np.clip(speech + noise, -32768, 32767).astype(np.int16))
+        r = subprocess.run([sys.executable, demo, "--device", "gpu", "--input_path", mix,
+                            "--output_path", os.path.join(tmp, "gpu.wav")],
+                           cwd=here, capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            fail("koala_demo_file_torch.py --device gpu: %s" % (r.stdout + r.stderr)[-2000:])
+        spec = importlib.util.spec_from_file_location("koala_demo_file_torch", demo)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        with contextlib.redirect_stdout(io.StringIO()):
+            module.main(["--device", "cpu", "--input_path", mix,
+                         "--output_path", os.path.join(tmp, "cpu.wav")])
+        gpu, cpu = (read_wav(os.path.join(tmp, n)) for n in ("gpu.wav", "cpu.wav"))
+    rtf = re.search(r"Real time factor: (\S+)", r.stdout)
+    db = snr_db(cpu.astype(np.float64), gpu.astype(np.float64)) if gpu.shape == cpu.shape \
+        else float("-inf")
+    print("demo koala_demo_file_torch.py --device gpu: %.3f s of audio, real time factor %s, "
+          "%.2f dB from --device cpu on %s"
+          % (len(gpu) / 16000.0, rtf.group(1) if rtf else "missing", db, card))
+    if rtf is None or gpu.shape != speech.shape or db < CHUNK_SNR_DB:
+        fail("the file demo on the card: %d samples for %d, %.1f dB from the CPU"
+             % (len(gpu), len(speech), db))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA card: this script measures the port on a card")
@@ -1262,27 +1530,9 @@ def main() -> None:
           "a call on %s" % (hops.shape[0], hops.shape[1],
                             ", ".join("%s %.4f" % kv for kv in stages.items()),
                             sum(stages.values()), fused_device_launches, card))
-    ops = engine_fused.prepare(params, cfg)
-    lay = ops["layout"]
     b, t_len, _ = hops.shape
-    h, L = lay.hidden, lay.layers
-    w_bytes = sum(ops[n].numel() * ops[n].element_size() for n in (
-        "fwd", "inv", "band", "cepb", "wenc", "benc", "wcep", "wdec", "bdec",
-        "wx", "bx", "wh", "bh"))
-    s_bytes = b * (256 * 4 + 2 * 256 * 4 + 2 * lay.nb * 4 + 2 * L * h * 4)
-    f_bytes = 2 * b * t_len * 256 * 4 + s_bytes + w_bytes
-    # the function's real widths, not the kernel's padded ones: 257 bins
-    # (514 re|im DFT columns), nb bands, 161 cepstral lags, the encoder's
-    # bins + 2 nb + cep inputs, 257 mask columns + the gate
-    bins = cfg["bins"]
-    enc_in = bins + 2 * lay.nb + lay.cep
-    per_row_mm = 2 * (512 * 2 * bins + bins * lay.nb + (bins * 161 if lay.cep else 0) + enc_in * h
-                      + L * 2 * h * 3 * h + h * (bins + 1) + 2 * bins * 512)
-    per_row_ew = bins * 12 + lay.nb * 12 + lay.cep * (161 + h * 2) + h * 12 \
-        + L * h * 20 + bins * 10 + 256 * 2
-    f_bound = {"bytes": f_bytes / HBM_BYTES_PER_S * 1e3,
-               "operations": max(b * t_len * per_row_mm / BF16_TENSOR_FLOPS,
-                                 b * t_len * per_row_ew / F32_FLOPS) * 1e3}
+    h, L = cfg["hidden"], cfg["num_layers"]
+    f_bound = fused_bound(engine_fused, params, cfg, b, t_len)
     kernels.append({
         "name": "engine_fused", "route": "cuda",
         "source": "koala_tpu_torch/csrc/engine_fused.cu",
@@ -1345,18 +1595,42 @@ def main() -> None:
     # ---- 7. the parallel layer: CorpusRunner and the data-parallel train step
     corpus_counts, dp_counts = parallel_phases(dev, card, reset_counts, counts, pcm)
 
+    # ---- 8. bench_torch.py at its full batch
+    phase_s = {}
+    s = time.perf_counter()
+    bench_counts, fused_at_bench = bench_phase(dev, card, reset_counts, counts)
+    next(kr for kr in kernels if kr["name"] == "engine_fused").update(fused_at_bench)
+    phase_s["bench"] = time.perf_counter() - s
+
+    # ---- 9. the GRU kernel's gate: models with a launch plan, and one without
+    s = time.perf_counter()
+    gate_counts = gate_phase(kt, dev, card, reset_counts, counts)
+    phase_s["gate"] = time.perf_counter() - s
+
+    # ---- 10. the file demo on the card
+    s = time.perf_counter()
+    demo_phase(card)
+    phase_s["demo"] = time.perf_counter() - s
+
     # every kernel's launches, by the path that made them
     by_path = {
         "floor_scan": {"process_chunk": launches["floor_scan"],
                        "train_on_device": floor_train["launches"],
                        "server_backlog": backlog_counts["floor_scan"],
-                       "data_parallel_step": dp_counts["floor_scan"]},
+                       "data_parallel_step": dp_counts["floor_scan"],
+                       "bench": bench_counts["floor_scan"],
+                       "gate_phase": gate_counts["floor_scan"]},
         "gru_stack": {"process_chunk": launches["gru_stack"],
-                      "server_backlog": backlog_counts["gru_stack"]},
+                      "server_backlog": backlog_counts["gru_stack"],
+                      "bench": bench_counts["gru_stack"],
+                      "gate_phase": gate_counts["gru_stack"]},
         "gru_stack_hs": {"train_on_device": hs_entry["launches"],
-                         "data_parallel_step": dp_counts["gru_stack_hs"]},
+                         "data_parallel_step": dp_counts["gru_stack_hs"],
+                         "gate_phase": gate_counts["gru_stack_hs"]},
         "engine_fused": {"enhance": launches["engine_fused"],
-                         "corpus_runner": corpus_counts["engine_fused"]},
+                         "corpus_runner": corpus_counts["engine_fused"],
+                         "bench": bench_counts["engine_fused"],
+                         "gate_phase": gate_counts["engine_fused"]},
     }
     for kr in kernels:
         kr["launches_by_path"] = by_path[kr["name"]]
@@ -1380,6 +1654,9 @@ def main() -> None:
              floor_train["plain_ms"], floor_train["max_abs_err"], floor_train["launches"], card))
     k.delete()
     kb.delete()
+    print("chip_smoke: %.1f s from the build on, of which bench %.1f s, gate %.1f s, demo "
+          "%.1f s" % (time.perf_counter() - t0, phase_s["bench"], phase_s["gate"],
+                      phase_s["demo"]))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -77,7 +77,7 @@ struct FusedArgs {
   void *out, *ola_out, *floor_out, *h_out;
   void *spec, *feat, *lb, *floors, *cg, *x, *y, *exch, *counters, *stage_ms, *stream;
   int B, T, H, L, nbp, cep, hop_stride, carry_stride, out_stride;
-  int gru_w, gru_rb, gru_chunks, gru_groups;
+  int gru_w, gru_lg, gru_rb, gru_chunks, gru_groups;
   int cep_lo[MAX_CEP], cep_hi[MAX_CEP];
   float eps2, feat_shift, feat_scale, rise, snr_scale, snr_clip, cep_scale;
 };
@@ -409,7 +409,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) back_kernel(const FusedArgs a
 extern "C" int koala_gru_stack(const void* x, const void* h0, const void* wx, const void* bx,
                                const void* wh, const void* bh, void* y, void* hs, void* h_final,
                                void* exch, void* counters, int T, int B, int H, int L, int W,
-                               int RB, int chunks, int groups, void* stream);
+                               int LG, int RB, int chunks, int groups, void* stream);
 
 // The most dynamic shared memory that a stage's block asks for, for the gate.
 extern "C" size_t koala_engine_fused_smem(int nbp, int H) {
@@ -464,8 +464,8 @@ extern "C" int koala_engine_fused(const FusedArgs* args) {
   mark(3);
   if (status == 0)
     status = koala_gru_stack(a.x, a.h0, a.wx, a.bx, a.wh, a.bh, a.y, nullptr, a.h_out, a.exch,
-                             a.counters, a.T, a.B, a.H, a.L, a.gru_w, a.gru_rb, a.gru_chunks,
-                             a.gru_groups, a.stream);
+                             a.counters, a.T, a.B, a.H, a.L, a.gru_w, a.gru_lg, a.gru_rb,
+                             a.gru_chunks, a.gru_groups, a.stream);
   mark(4);
   if (status == 0) {
     back_kernel<<<(M + BACK_ROWS - 1) / BACK_ROWS, GEMM_THREADS, smem_back, stream>>>(a);

@@ -47,6 +47,18 @@
 //    ticks for the launch instead of T x L dependent layer-steps;
 //  - between arriving at the barrier and waiting on it a block starts the
 //    copy of the next input rows x[k + 1], which depend on nobody.
+// Stacks whose weights a block's 16 warps cannot hold (wide or deep ones)
+// are laid out two more ways, tried in this order:
+//  - layer groups: the L layers are cut into groups of LG consecutive
+//    layers, and block (layer group, slice) owns W units of its group's
+//    layers only. The bf16 exchange is the same; what crosses from the top
+//    layer of one group to the bottom layer of the next is the f32 residual
+//    stream of the block's own columns, through a small f32 exchange buffer
+//    (two copies by parity, like the others). The row group's barrier then
+//    spans all its layer groups' blocks, and the tick count stays T + L - 1;
+//  - spilled units: where even one layer group per block leaves a block more
+//    units than warps, warp w also runs units w + 16, w + 32, ..., whose
+//    fragments it gathers once into shared memory instead of registers.
 // Rows are cut into chunks of RB rows (a multiple of 16); row chunks never
 // interact, so `groups` of them run side by side on their own blocks with
 // their own barrier counter, and a group walks over its further chunks one
@@ -91,40 +103,59 @@ constexpr int MAX_CHUNK_ROWS = 64;
 struct GruShape {
   int T, B, H, L;
   int W;       // hidden units per block
+  int LG;      // layers per block: layer groups of LG (the last one may hold fewer)
   int RB;      // rows per chunk
   int chunks;  // row chunks covering B
-  int groups;  // row chunks in flight at once (blocks = groups * H / W)
+  int groups;  // row chunks in flight at once (blocks = groups * H / W * layer groups)
 };
 
-// k ranges per product half: short enough for a warp's registers, and enough
-// of them to give every warp a unit
-__host__ __device__ inline int gru_k_splits(int H, int L, int W) {
+// k ranges per product half of a block of LG layers: short enough for a
+// warp's registers, and enough of them to give every warp a unit
+__host__ __device__ inline int gru_k_splits(int H, int LG, int W) {
   const int KT = H / 16;
   int ks = (KT + UNIT_K_TILES - 1) / UNIT_K_TILES;
-  if (ks < GRU_WARPS / (L * (W / 8) * 2)) ks = GRU_WARPS / (L * (W / 8) * 2);
+  if (ks < GRU_WARPS / (LG * (W / 8) * 2)) ks = GRU_WARPS / (LG * (W / 8) * 2);
   if (ks > KT) ks = KT;
   return ks;
 }
 
-// units of one block: (layer, 8-unit tile, half, k range); one warp each
-__host__ __device__ inline int gru_units(int H, int L, int W) {
-  return L * (W / 8) * 2 * gru_k_splits(H, L, W);
+// k tiles of the longest k range (at most UNIT_K_TILES)
+__host__ __device__ inline int gru_unit_k_tiles(int H, int LG, int W) {
+  const int ks = gru_k_splits(H, LG, W);
+  return (H / 16 + ks - 1) / ks;
 }
 
+// units of a block of LG layers: (layer, 8-unit tile, half, k range)
+__host__ __device__ inline int gru_units(int H, int LG, int W) {
+  return LG * (W / 8) * 2 * gru_k_splits(H, LG, W);
+}
+
+// units past the block's warps: their fragments lie in shared memory
+__host__ __device__ inline int gru_spilled_units(int H, int LG, int W) {
+  const int u = gru_units(H, LG, W);
+  return u > GRU_WARPS ? u - GRU_WARPS : 0;
+}
+
+// fragments of one k tile of a unit: z, r, n, one uint2 a lane each
+constexpr int FRAG_TILE = 3 * 32;
+
 struct GruSmem {
-  size_t bias, ops, stage, h, xf, tiles, total;
+  size_t bias, ops, stage, h, xf, tiles, frag, total;
 };
 
-__host__ __device__ inline GruSmem gru_smem_layout(int H, int L, int W, int RB) {
+// LG: the layers of one block
+__host__ __device__ inline GruSmem gru_smem_layout(int H, int LG, int W, int RB) {
   const int items = (RB / 16) * (W / 8);
   GruSmem s;
   s.bias = 0;
-  s.ops = s.bias + align128((size_t)L * 6 * W * 4);
-  s.stage = s.ops + align128((size_t)2 * L * RB * (H + 8) * 2);
-  s.h = s.stage + align128((size_t)L * items * 2 * gru_k_splits(H, L, W) * UNIT_FLOATS * 4);
-  s.xf = s.h + align128((size_t)L * items * ACC_FLOATS * 4);
-  s.tiles = s.xf + align128((size_t)2 * L * items * ACC_FLOATS * 4);
-  s.total = s.tiles + align128((size_t)L * items * 2 * 4);
+  s.ops = s.bias + align128((size_t)LG * 6 * W * 4);
+  s.stage = s.ops + align128((size_t)2 * LG * RB * (H + 8) * 2);
+  s.h = s.stage + align128((size_t)LG * items * 2 * gru_k_splits(H, LG, W) * UNIT_FLOATS * 4);
+  s.xf = s.h + align128((size_t)LG * items * ACC_FLOATS * 4);
+  s.tiles = s.xf + align128((size_t)2 * LG * items * ACC_FLOATS * 4);
+  s.frag = s.tiles + align128((size_t)LG * items * 2 * 4);
+  s.total = s.frag + align128((size_t)gru_spilled_units(H, LG, W) *
+                              gru_unit_k_tiles(H, LG, W) * FRAG_TILE * 8);
   return s;
 }
 
@@ -152,7 +183,27 @@ __device__ __forceinline__ void unit_products(const bf16* a_tile, int S, int lan
   }
 }
 
-template <bool HS>
+// The same for a spilled unit, its fragments in shared memory ([k tile][z, r,
+// n][lane]); one k tile at a time.
+__device__ __forceinline__ void unit_products_shared(const bf16* a_tile, int S, int lane,
+                                                     int k_tiles, const uint2* frag,
+                                                     float (&az)[4], float (&ar)[4],
+                                                     float (&an)[4]) {
+  unsigned a[4];
+  for (int i = 0; i < k_tiles; ++i) {
+    ldmatrix_x4(a, a_tile + i * 16, S, lane);
+    const uint2* f = frag + i * FRAG_TILE + lane;
+    mma_bf16(az, a, f[0]);
+    mma_bf16(ar, a, f[32]);
+    mma_bf16(an, a, f[64]);
+  }
+}
+
+// GROUPED: more than one layer group, or spilled units. Without it the
+// kernel is compiled for one layer group whose units all sit in registers
+// (l0 = 0, no spilled units), with nothing of the other two layouts left in
+// its registers.
+template <bool HS, bool GROUPED>
 __global__ void __launch_bounds__(GRU_THREADS, 1)
     gru_stack_kernel(const bf16* __restrict__ x, const float* __restrict__ h0,
                      const bf16* __restrict__ wx, const float* __restrict__ bx,
@@ -160,23 +211,31 @@ __global__ void __launch_bounds__(GRU_THREADS, 1)
                      bf16* __restrict__ y, float* __restrict__ hs, float* __restrict__ h_final,
                      bf16* exch, unsigned* counters, GruShape s) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int T = s.T, B = s.B, H = s.H, L = s.L, W = s.W, RB = s.RB;
-  const GruSmem lay = gru_smem_layout(H, L, W, RB);
+  const int T = s.T, B = s.B, H = s.H, L = s.L, W = s.W, LG = s.LG, RB = s.RB;
+  const GruSmem lay = gru_smem_layout(H, LG, W, RB);
   float* bias_s = reinterpret_cast<float*>(smem + lay.bias);
   bf16* ops_s = reinterpret_cast<bf16*>(smem + lay.ops);
   float* stage = reinterpret_cast<float*>(smem + lay.stage);
   float* h_s = reinterpret_cast<float*>(smem + lay.h);
   float* xf_s = reinterpret_cast<float*>(smem + lay.xf);
   int* tile_tab = reinterpret_cast<int*>(smem + lay.tiles);
+  uint2* frag_s = reinterpret_cast<uint2*>(smem + lay.frag);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int NB = H / W, NU = W / 8, KT = H / 16, S = H + 8;
+  const int LGS = GROUPED ? (L + LG - 1) / LG : 1;  // layer groups
+  const int NBG = NB * LGS;                    // blocks of a row group
   const int items = (RB / 16) * NU;            // 16 x 8 output tiles of one layer
   const int MT = RB / 16;
-  const int ks = gru_k_splits(H, L, W);
-  const int elems = L * items * ACC_FLOATS;    // state elements of the block: [l][tile][128]
+  const int ks = gru_k_splits(H, LG, W), UKT = gru_unit_k_tiles(H, LG, W);
+  const int slice = blockIdx.x % NB, group = blockIdx.x / NBG;
+  const int lgi = GROUPED ? (blockIdx.x / NB) % LGS : 0;
+  // this block's layers: [l0, l0 + LB); below, a layer index is local (lo)
+  // unless it is called global (gl = l0 + lo)
+  const int l0 = lgi * LG, LB = GROUPED ? min(LG, L - l0) : L;
+  const int n_units = LB * NU * 2 * ks;
+  const int elems = LB * items * ACC_FLOATS;   // state elements of the block: [lo][tile][128]
   const int layer_elems = items * ACC_FLOATS;
-  const int slice = blockIdx.x % NB, group = blockIdx.x / NB;
   const int col0 = slice * W;
   unsigned* counter = counters + group;
   unsigned barriers = 0;
@@ -184,17 +243,18 @@ __global__ void __launch_bounds__(GRU_THREADS, 1)
   const int op_elems = RB * S;                 // one operand buffer in shared memory
   const size_t ex_elems = (size_t)RB * H;      // one exchange buffer in device memory
 
-  // ---- this warp's unit u = ((l * NU + unit tile) * 2 + half) * ks + k range,
-  // and its weights, once, as B fragments: lane n * 4 + i holds rows
-  // {2i, 2i + 1} (.x) and {2i + 8, 2i + 9} (.y) of column n of each k tile
-  const bool has_unit = warp < gru_units(H, L, W);
+  // ---- this warp's unit u = ((lo * NU + unit tile) * 2 + half) * ks + k
+  // range, and its weights, once, as B fragments in its REGISTERS: lane
+  // n * 4 + i holds rows {2i, 2i + 1} (.x) and {2i + 8, 2i + 9} (.y) of
+  // column n of each k tile
+  const bool has_unit = warp < n_units;
   const int u_sp = warp % ks, u_half = (warp / ks) & 1, u_tile = (warp / (2 * ks)) % NU;
   const int u_l = warp / (2 * ks * NU);
   const int u_k0 = u_sp * KT / ks, u_klen = has_unit ? (u_sp + 1) * KT / ks - u_k0 : 0;
   uint2 breg[UNIT_K_TILES][3];
   {
     const unsigned short* w = reinterpret_cast<const unsigned short*>(u_half ? wh : wx) +
-                              (size_t)(has_unit ? u_l : 0) * H * 3 * H + col0 + u_tile * 8 +
+                              (size_t)(has_unit ? l0 + u_l : 0) * H * 3 * H + col0 + u_tile * 8 +
                               (lane >> 2);
 #pragma unroll
     for (int i = 0; i < UNIT_K_TILES; ++i) {
@@ -209,20 +269,48 @@ __global__ void __launch_bounds__(GRU_THREADS, 1)
       }
     }
   }
-  // biases: [l][bx z, r, n, bh z, r, n][W]
-  for (int i = tid; i < L * 6 * W; i += GRU_THREADS) {
-    const int c = i % W, g = (i / W) % 6, l = i / (6 * W);
-    const float* b = g < 3 ? bx : bh;
-    bias_s[i] = b[(size_t)l * 3 * H + (g % 3) * H + col0 + c];
+  // the units past the warps (u = warp + 16, warp + 32, ...): the same
+  // fragments, once into shared memory ([k tile][z, r, n][lane])
+  struct Unit { int l, tile, half, k0, klen; size_t sums; };
+  auto unit = [&](int u) {
+    const int sp = u % ks;
+    Unit d;
+    d.tile = (u / (2 * ks)) % NU;
+    d.half = (u / ks) & 1;
+    d.l = u / (2 * ks * NU);
+    d.k0 = sp * KT / ks;
+    d.klen = (sp + 1) * KT / ks - d.k0;
+    d.sums = ((size_t)((d.l * items + d.tile) * 2 + d.half) * ks + sp) * UNIT_FLOATS;
+    return d;
+  };
+  for (int u = warp + GRU_WARPS; GROUPED && u < n_units; u += GRU_WARPS) {
+    const Unit d = unit(u);
+    const unsigned short* w = reinterpret_cast<const unsigned short*>(d.half ? wh : wx) +
+                              (size_t)(l0 + d.l) * H * 3 * H + col0 + d.tile * 8 + (lane >> 2);
+    uint2* f = frag_s + (size_t)(u - GRU_WARPS) * UKT * FRAG_TILE + lane;
+    for (int i = 0; i < d.klen; ++i)
+      for (int g = 0; g < 3; ++g) {
+        const unsigned short* p = w + (size_t)((d.k0 + i) * 16 + (lane & 3) * 2) * 3 * H + g * H;
+        f[i * FRAG_TILE + g * 32] =
+            make_uint2(__ldg(p) | ((unsigned)__ldg(p + 3 * H) << 16),
+                       __ldg(p + 8 * 3 * H) | ((unsigned)__ldg(p + 9 * 3 * H) << 16));
+      }
   }
-  for (int i = tid; i < L * items; i += GRU_THREADS) {
+  // biases: [lo][bx z, r, n, bh z, r, n][W]
+  for (int i = tid; i < LB * 6 * W; i += GRU_THREADS) {
+    const int c = i % W, g = (i / W) % 6, lo = i / (6 * W);
+    const float* b = g < 3 ? bx : bh;
+    bias_s[i] = b[(size_t)(l0 + lo) * 3 * H + (g % 3) * H + col0 + c];
+  }
+  for (int i = tid; i < LB * items; i += GRU_THREADS) {
     tile_tab[2 * i] = i / items;
     tile_tab[2 * i + 1] = i % items;
   }
   __syncthreads();
 
-  // state element g = (l * items + tile) * 128 + position in the accumulator
-  // tile (lane * 4 + pair * 2 + q): its layer, its row and its column (NU is 1 or 2)
+  // state element g = (lo * items + tile) * 128 + position in the accumulator
+  // tile (lane * 4 + pair * 2 + q): its local layer, its row and its column
+  // (NU is 1 or 2)
   struct Elem { int l, r, c, at; };
   auto element = [&](int g) {
     const int l = tile_tab[2 * (g >> 7)], tile = tile_tab[2 * (g >> 7) + 1], at = g & 127;
@@ -243,63 +331,90 @@ __global__ void __launch_bounds__(GRU_THREADS, 1)
     }
   };
 
-  // operand buffers: bf16(x_0) (the input rows), bf16(h_0), bf16(x_1), bf16(h_1), ...
-  auto operand = [&](int l, int half) { return ops_s + (size_t)(2 * l + half) * op_elems; };
-  // the unit's partial z, r, n sums for tick k, 16-row tile by tile
-  auto run_unit = [&](int k) {
-    if (!has_unit || k - u_l < 0 || k - u_l >= T) return;
-    const bf16* a_rows = operand(u_l, u_half) + u_k0 * 16;
-    float* out_rows = stage + ((size_t)((u_l * items + u_tile) * 2 + u_half) * ks + u_sp) *
-                                  UNIT_FLOATS;
-    for (int mi = 0; mi < MT; ++mi) {
-      float az[4] = {0.f, 0.f, 0.f, 0.f}, ar[4] = {0.f, 0.f, 0.f, 0.f},
-            an[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf16* a_tile = a_rows + (size_t)mi * 16 * S;
-      if (u_klen == UNIT_K_TILES)
-        unit_products<true>(a_tile, S, lane, u_klen, breg, az, ar, an);
-      else
-        unit_products<false>(a_tile, S, lane, u_klen, breg, az, ar, an);
-      float4* out = reinterpret_cast<float4*>(
-                        out_rows + (size_t)mi * NU * 2 * ks * UNIT_FLOATS) + lane;
-      out[0] = make_float4(az[0], az[1], az[2], az[3]);
-      out[32] = make_float4(ar[0], ar[1], ar[2], ar[3]);
-      out[64] = make_float4(an[0], an[1], an[2], an[3]);
+  // operand buffers: bf16(x_l0) (the input rows when l0 = 0), bf16(h_l0),
+  // bf16(x_l0+1), bf16(h_l0+1), ...
+  auto operand = [&](int lo, int half) { return ops_s + (size_t)(2 * lo + half) * op_elems; };
+  // the units' partial z, r, n sums for tick k, 16-row tile by tile
+  auto store_sums = [&](float* out_rows, int mi, const float (&az)[4], const float (&ar)[4],
+                        const float (&an)[4]) {
+    float4* out = reinterpret_cast<float4*>(out_rows + (size_t)mi * NU * 2 * ks * UNIT_FLOATS) +
+                  lane;
+    out[0] = make_float4(az[0], az[1], az[2], az[3]);
+    out[32] = make_float4(ar[0], ar[1], ar[2], ar[3]);
+    out[64] = make_float4(an[0], an[1], an[2], an[3]);
+  };
+  auto live_at = [&](int lo, int k) { return k - (l0 + lo) >= 0 && k - (l0 + lo) < T; };
+  auto run_units = [&](int k) {
+    if (has_unit && live_at(u_l, k)) {
+      const bf16* a_rows = operand(u_l, u_half) + u_k0 * 16;
+      float* out_rows = stage + ((size_t)((u_l * items + u_tile) * 2 + u_half) * ks + u_sp) *
+                                    UNIT_FLOATS;
+      for (int mi = 0; mi < MT; ++mi) {
+        float az[4] = {0.f, 0.f, 0.f, 0.f}, ar[4] = {0.f, 0.f, 0.f, 0.f},
+              an[4] = {0.f, 0.f, 0.f, 0.f};
+        const bf16* a_tile = a_rows + (size_t)mi * 16 * S;
+        if (u_klen == UNIT_K_TILES)
+          unit_products<true>(a_tile, S, lane, u_klen, breg, az, ar, an);
+        else
+          unit_products<false>(a_tile, S, lane, u_klen, breg, az, ar, an);
+        store_sums(out_rows, mi, az, ar, an);
+      }
+    }
+    for (int u = warp + GRU_WARPS; GROUPED && u < n_units; u += GRU_WARPS) {
+      const Unit d = unit(u);
+      if (!live_at(d.l, k)) continue;
+      const bf16* a_rows = operand(d.l, d.half) + d.k0 * 16;
+      const uint2* f = frag_s + (size_t)(u - GRU_WARPS) * UKT * FRAG_TILE;
+      for (int mi = 0; mi < MT; ++mi) {
+        float az[4] = {0.f, 0.f, 0.f, 0.f}, ar[4] = {0.f, 0.f, 0.f, 0.f},
+              an[4] = {0.f, 0.f, 0.f, 0.f};
+        unit_products_shared(a_rows + (size_t)mi * 16 * S, S, lane, d.klen, f, az, ar, an);
+        store_sums(stage + d.sums, mi, az, ar, an);
+      }
     }
   };
 
   for (int chunk = group; chunk < s.chunks; chunk += s.groups) {
     const int row0 = chunk * RB;
-    bf16* ex = exch + (size_t)chunk * (4 * L - 2) * ex_elems;
+    bf16* ex = exch + (size_t)chunk * (4 * L - 2 + 4 * (LGS - 1)) * ex_elems;
     // what tick k publishes lies in the copy of parity k & 1: bf16(h_l) in
-    // hbuf(l, .), bf16(x_{l+1}) in xbuf(l, .)
-    auto hbuf = [&](int l, int parity) { return ex + (size_t)(l * 2 + parity) * ex_elems; };
-    auto xbuf = [&](int l, int parity) { return ex + (size_t)(2 * L + l * 2 + parity) * ex_elems; };
+    // hbuf(l, .), bf16(x_{l+1}) in xbuf(l, .) (global layers), and the f32
+    // stream that leaves the top layer of layer group i in xfbuf(i, .)
+    auto hbuf = [&](int gl, int parity) { return ex + (size_t)(gl * 2 + parity) * ex_elems; };
+    auto xbuf = [&](int gl, int parity) {
+      return ex + (size_t)(2 * L + gl * 2 + parity) * ex_elems;
+    };
+    auto xfbuf = [&](int i, int parity) {
+      return reinterpret_cast<float*>(ex + (size_t)(4 * L - 2) * ex_elems) +
+             (size_t)(i * 2 + parity) * ex_elems;
+    };
     // the input rows of tick k (layer 0, step k): they depend on no other block
     auto start_input = [&](int k) {
-      if (k < T) copy_rows(operand(0, 0), x + ((size_t)k * B + row0) * H, min(RB, B - row0));
+      if (l0 == 0 && k < T)
+        copy_rows(operand(0, 0), x + ((size_t)k * B + row0) * H, min(RB, B - row0));
     };
     // what tick k reads of tick k - 1's publishes; closes the tick's copy group
     auto start_exchange = [&](int k) {
-      for (int l = 0; l < L; ++l) {
-        if (k - l < 0 || k - l >= T) continue;
-        copy_rows(operand(l, 1), hbuf(l, (k + 1) & 1), RB);
-        if (l > 0) copy_rows(operand(l, 0), xbuf(l - 1, (k + 1) & 1), RB);
+      for (int lo = 0; lo < LB; ++lo) {
+        if (!live_at(lo, k)) continue;
+        copy_rows(operand(lo, 1), hbuf(l0 + lo, (k + 1) & 1), RB);
+        if (l0 + lo > 0) copy_rows(operand(lo, 0), xbuf(l0 + lo - 1, (k + 1) & 1), RB);
       }
       cp_async_commit();
     };
 
-    // ---- this chunk's state in; its bf16 copy published where layer l's
-    // first tick (k = l) looks for the tick before it
+    // ---- this chunk's state in; its bf16 copy published where layer gl's
+    // first tick (k = gl) looks for the tick before it
     for (int g = tid; g < elems; g += GRU_THREADS) {
       const Elem e = element(g);
-      const int b = row0 + e.r;
-      const float v = b < B ? h0[((size_t)e.l * B + b) * H + col0 + e.c] : 0.0f;
+      const int gl = l0 + e.l, b = row0 + e.r;
+      const float v = b < B ? h0[((size_t)gl * B + b) * H + col0 + e.c] : 0.0f;
       h_s[g] = v;
-      hbuf(e.l, (e.l + 1) & 1)[(size_t)e.r * H + col0 + e.c] = __float2bfloat16(v);
+      hbuf(gl, (gl + 1) & 1)[(size_t)e.r * H + col0 + e.c] = __float2bfloat16(v);
     }
     grid_barrier_arrive(counter);
     start_input(0);
-    grid_barrier_wait(counter, ++barriers * NB);
+    grid_barrier_wait(counter, ++barriers * NBG);
     start_exchange(0);
 
     const int ticks = T > 0 ? T + L - 1 : 0;
@@ -309,7 +424,7 @@ __global__ void __launch_bounds__(GRU_THREADS, 1)
       __syncthreads();
       PHASE(0)
 
-      run_unit(k);
+      run_units(k);
       __syncthreads();
       PHASE(1)
 
@@ -317,7 +432,7 @@ __global__ void __launch_bounds__(GRU_THREADS, 1)
       // columns of an accumulator pair in neighbouring lanes
       for (int g = tid; g < elems; g += GRU_THREADS) {
         const Elem e = element(g);
-        const int l = e.l, t = k - l;
+        const int lo = e.l, gl = l0 + lo, t = k - gl;
         if (t < 0 || t >= T) continue;          // whole warps: 128 elements share a layer
         const float* sx = stage + (size_t)(g >> 7) * 2 * ks * UNIT_FLOATS + e.at;
         const float* sh = sx + (size_t)ks * UNIT_FLOATS;
@@ -330,33 +445,40 @@ __global__ void __launch_bounds__(GRU_THREADS, 1)
           hr += sh[sp * UNIT_FLOATS + ACC_FLOATS];
           hn += sh[sp * UNIT_FLOATS + 2 * ACC_FLOATS];
         }
-        const float* bl = bias_s + (size_t)l * 6 * W + e.c;
+        const float* bl = bias_s + (size_t)lo * 6 * W + e.c;
         const float z = sigmoid_fast((xz + bl[0]) + (hz + bl[3 * W]));
         const float rg = sigmoid_fast((xr + bl[W]) + (hr + bl[4 * W]));
         const float n = tanh_fast((xn + bl[2 * W]) + rg * (hn + bl[5 * W]));
         const int b = row0 + e.r;
         // rows past B stay exact zeros in state, stream and operands
         const float h_new = (b < B ? 1.0f : 0.0f) * ((1.0f - z) * n + z * h_s[g]);
-        const float x_in = l == 0 ? __bfloat162float(operand(0, 0)[(size_t)e.r * S + col0 + e.c])
-                                  : xf_s[((k + 1) & 1) * elems + g];
+        const size_t own = (size_t)e.r * H + col0 + e.c;
+        const float x_in = gl == 0   ? __bfloat162float(operand(0, 0)[(size_t)e.r * S + col0 + e.c])
+                           : GROUPED && lo == 0 ? __ldcg(xfbuf(lgi - 1, (k + 1) & 1) + own)
+                                     : xf_s[((k + 1) & 1) * elems + g];
         const float x_new = x_in + h_new;
         h_s[g] = h_new;
-        if (l < L - 1) xf_s[(k & 1) * elems + g + layer_elems] = x_new;
+        if (gl < L - 1) {
+          if (!GROUPED || lo < LB - 1)
+            xf_s[(k & 1) * elems + g + layer_elems] = x_new;
+          else
+            xfbuf(lgi, k & 1)[own] = x_new;
+        }
         // even lanes store the pair of h, odd lanes the pair of x
         const bool odd = e.at & 1;
-        const float mine = odd ? x_new : h_new;
+        const float mine_v = odd ? x_new : h_new;
         const float other = __shfl_xor_sync(0xffffffffu, odd ? h_new : x_new, 1);
-        const __nv_bfloat162 pair = odd ? __floats2bfloat162_rn(other, mine)
-                                        : __floats2bfloat162_rn(mine, other);
+        const __nv_bfloat162 pair = odd ? __floats2bfloat162_rn(other, mine_v)
+                                        : __floats2bfloat162_rn(mine_v, other);
         const size_t at = (size_t)e.r * H + col0 + (e.c & ~1);
         if (!odd)
-          *reinterpret_cast<__nv_bfloat162*>(hbuf(l, k & 1) + at) = pair;
-        else if (l < L - 1)
-          *reinterpret_cast<__nv_bfloat162*>(xbuf(l, k & 1) + at) = pair;
+          *reinterpret_cast<__nv_bfloat162*>(hbuf(gl, k & 1) + at) = pair;
+        else if (gl < L - 1)
+          *reinterpret_cast<__nv_bfloat162*>(xbuf(gl, k & 1) + at) = pair;
         else if (b < B)
           *reinterpret_cast<__nv_bfloat162*>(y + ((size_t)t * B + b) * H + col0 + (e.c & ~1)) =
               pair;
-        if (HS && b < B) hs[(((size_t)t * L + l) * B + b) * H + col0 + e.c] = h_new;
+        if (HS && b < B) hs[(((size_t)t * L + gl) * B + b) * H + col0 + e.c] = h_new;
       }
 
       PHASE(2)
@@ -364,7 +486,7 @@ __global__ void __launch_bounds__(GRU_THREADS, 1)
         grid_barrier_arrive(counter);
         start_input(k + 1);
         PHASE(3)
-        grid_barrier_wait(counter, ++barriers * NB);
+        grid_barrier_wait(counter, ++barriers * NBG);
         PHASE(4)
         start_exchange(k + 1);
         PHASE(5)
@@ -376,7 +498,7 @@ __global__ void __launch_bounds__(GRU_THREADS, 1)
     for (int g = tid; g < elems; g += GRU_THREADS) {
       const Elem e = element(g);
       const int b = row0 + e.r;
-      if (b < B) h_final[((size_t)e.l * B + b) * H + col0 + e.c] = h_s[g];
+      if (b < B) h_final[((size_t)(l0 + e.l) * B + b) * H + col0 + e.c] = h_s[g];
     }
     __syncthreads();
   }
@@ -413,29 +535,33 @@ static int launch_cooperative(const void* kernel, int blocks, size_t smem, void*
   return (int)cudaGetLastError();
 }
 
-// Shared memory of one block, for the wrapper's plan to be held against.
-extern "C" size_t koala_gru_smem_bytes(int H, int L, int W, int RB) {
-  return gru_smem_layout(H, L, W, RB).total;
+// Shared memory of one block of LG layers, for the wrapper's plan to be held
+// against.
+extern "C" size_t koala_gru_smem_bytes(int H, int LG, int W, int RB) {
+  return gru_smem_layout(H, LG, W, RB).total;
 }
 
 // hs == nullptr: the inference variant. Otherwise hs [T, L, B, H] f32 is
-// written too (the training variant). exch: chunks * (4L - 2) * RB * H bf16
-// of scratch; counters: `groups` zeroed unsigned ints.
+// written too (the training variant). LG: layers per block. exch: chunks *
+// (4L - 2 + 4 (layer groups - 1)) * RB * H bf16 of scratch; counters:
+// `groups` zeroed unsigned ints.
 extern "C" int koala_gru_stack(const void* x, const void* h0, const void* wx, const void* bx,
                                const void* wh, const void* bh, void* y, void* hs, void* h_final,
                                void* exch, void* counters, int T, int B, int H, int L, int W,
-                               int RB, int chunks, int groups, void* stream) {
-  if (T < 0 || B < 1 || L < 1 || H < 16 || H % 16 || (W != 8 && W != 16) || RB < 16 ||
-      RB % 16 || RB > MAX_CHUNK_ROWS || gru_units(H, L, W) > GRU_WARPS ||
-      (H / 16 + gru_k_splits(H, L, W) - 1) / gru_k_splits(H, L, W) > UNIT_K_TILES ||
+                               int LG, int RB, int chunks, int groups, void* stream) {
+  if (T < 0 || B < 1 || L < 1 || H < 16 || H % 16 || (W != 8 && W != 16) || LG < 1 || LG > L ||
+      RB < 16 || RB % 16 || RB > MAX_CHUNK_ROWS || gru_unit_k_tiles(H, LG, W) > UNIT_K_TILES ||
       groups < 1 || groups > chunks || (size_t)chunks * RB < (size_t)B)
     return (int)cudaErrorInvalidValue;
-  GruShape s = {T, B, H, L, W, RB, chunks, groups};
-  const size_t smem = gru_smem_layout(H, L, W, RB).total;
+  GruShape s = {T, B, H, L, W, LG, RB, chunks, groups};
+  const size_t smem = gru_smem_layout(H, LG, W, RB).total;
   void* args[] = {&x, &h0, &wx, &bx, &wh, &bh, &y, &hs, &h_final, &exch, &counters, &s};
-  const void* kernel = hs == nullptr ? (const void*)gru_stack_kernel<false>
-                                     : (const void*)gru_stack_kernel<true>;
-  return launch_cooperative(kernel, groups * (H / W), smem, args, stream);
+  const bool grouped = LG < L || gru_spilled_units(H, LG, W) > 0;
+  const void* kernel = hs == nullptr ? (grouped ? (const void*)gru_stack_kernel<false, true>
+                                                : (const void*)gru_stack_kernel<false, false>)
+                                     : (grouped ? (const void*)gru_stack_kernel<true, true>
+                                                : (const void*)gru_stack_kernel<true, false>);
+  return launch_cooperative(kernel, groups * (H / W) * ((L + LG - 1) / LG), smem, args, stream);
 }
 
 // n grid barriers on `groups` groups of `blocks_per_group` blocks each.

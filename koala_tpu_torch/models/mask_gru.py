@@ -19,7 +19,10 @@ the floor tracker (ops/kernels/floor.py) and the GRU stack
 branch follows the tensor's device: CUDA takes the kernels, the CPU the scan
 (as the JAX package on its CPU backend). ``use_pallas=True`` forces the
 kernel branch (on the CPU through the kernels' plain versions), ``False``
-the scan.
+the scan. Within the kernel branch the GRU stack takes its kernel wherever
+``plan_launch`` has a launch plan for the shape (on an H100, every stack that
+the JAX package's kernel takes, and more); elsewhere it runs the scan, with
+one warning, as the JAX package does where its kernel does not fit.
 
 Training: parameters are created frozen (inference never builds a graph);
 a trainer calls ``requires_grad_(True)`` on the module. Under grad mode the
@@ -43,7 +46,7 @@ from torch import nn
 
 from ..constants import NUM_BINS
 from ..ops.kernels.floor import floor_scan, floor_scan_ref, floor_scan_trainable
-from ..ops.kernels.gru import gru_stack, gru_stack_trainable
+from ..ops.kernels.gru import H100_SMS, gru_stack, gru_stack_trainable, plan_launch
 
 logger = logging.getLogger("koala_tpu_torch")
 
@@ -215,6 +218,11 @@ class MaskGRU(nn.Module):
         return self.derived("gru_stacked", build)
 
 
+def num_params(params: MaskGRU) -> int:
+    """The number of parameters of a model (every weight and bias)."""
+    return sum(p.numel() for p in params.parameters())
+
+
 def _mm(x, params: MaskGRU, name: str, cfg):
     """Model product in the configured compute dtype, f32 sums."""
     if cfg.get("compute_dtype") == "bfloat16":
@@ -366,13 +374,35 @@ def _warn_fallback(reason: str, cfg) -> bool:
     return False
 
 
+def gru_kernel_fits(batch: int, hidden: int, layers: int, sms: int) -> bool:
+    """Whether the GRU kernel has a launch plan (``plan_launch``, memoised)
+    for [batch, hidden] x ``layers`` on a card of ``sms`` SMs: False where no
+    cut into layer groups fits a row group's blocks onto the card and a
+    block's share of the weights and operands into its shared memory."""
+    try:
+        plan_launch(batch, hidden, layers, sms=sms)
+    except ValueError:
+        return False
+    return True
+
+
 def _gru_kernel_enabled(cfg, x) -> bool:
+    """The kernel branch's GRU gate, as the JAX package's ``_pallas_enabled``:
+    where the kernel cannot take the shape, warn once and run the scan
+    branch. On the CPU (the kernels' plain versions) it asks the plan of an
+    H100, so that the CPU takes the branch the card would take."""
     if not _kernel_branch(cfg, x) or x.dim() != 3:
         return False
     if cfg.get("compute_dtype") != "bfloat16":
         return _warn_fallback("compute_dtype != bfloat16", cfg)
     if cfg["hidden"] % 16:
         return _warn_fallback("hidden not a multiple of 16", cfg)
+    sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
+           if x.device.type == "cuda" else H100_SMS)
+    # the plan depends on the batch only through how rows are laid out, so
+    # one warning stands for every batch of this width and depth
+    if not gru_kernel_fits(x.shape[0], cfg["hidden"], cfg["num_layers"], sms):
+        return _warn_fallback("no GRU kernel launch plan", cfg)
     return True
 
 
@@ -460,5 +490,5 @@ def apply_sequence(params: MaskGRU, state, re, im, config: Dict[str, Any] = None
 __all__ = [
     "DEFAULT_CONFIG", "TRAIN_CONFIG", "normalize_config", "expected_enc_in",
     "MaskGRU", "init_params", "init_state", "step", "apply_sequence", "features",
-    "band_log_energy", "cep_features",
+    "band_log_energy", "cep_features", "num_params", "gru_kernel_fits",
 ]

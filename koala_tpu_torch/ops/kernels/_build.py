@@ -93,7 +93,7 @@ _F = ctypes.c_float
 # point returns its cudaError_t.
 _SIGNATURES = {
     "koala_floor_scan": ([_P, _P, _P, _P, _I, _I, _F, _P], _I),
-    "koala_gru_stack": ([_P] * 11 + [_I] * 8 + [_P], _I),
+    "koala_gru_stack": ([_P] * 11 + [_I] * 9 + [_P], _I),
     "koala_gru_smem_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
     "koala_grid_barriers": ([_P, _I, _I, _I, _P], _I),
     "koala_engine_fused": ([_P], _I),   # pointer to struct FusedArgs (host memory)

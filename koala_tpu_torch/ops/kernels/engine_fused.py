@@ -267,7 +267,7 @@ class _Args(ctypes.Structure):
         "stream")]
         + [(n, ctypes.c_int) for n in (
             "B", "T", "H", "L", "nbp", "cep", "hop_stride", "carry_stride", "out_stride",
-            "gru_w", "gru_rb", "gru_chunks", "gru_groups")]
+            "gru_w", "gru_lg", "gru_rb", "gru_chunks", "gru_groups")]
         + [("cep_lo", ctypes.c_int * MAX_CEP), ("cep_hi", ctypes.c_int * MAX_CEP)]
         + [(n, ctypes.c_float) for n in (
             "eps2", "feat_shift", "feat_scale", "rise", "snr_scale", "snr_clip",
@@ -316,7 +316,7 @@ def fused_sequence(params, state, hops, cfg, stage_ms=None):
     h_lbh = h_state.movedim(1, 0).contiguous()
     seg = min(t_len, segment_hops(b, frame_bytes(h, nbp)))
     plan = plan_launch(b, h, L, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
-    if plan.barriers(seg) * plan.slices >= 2 ** 32:
+    if plan.barriers(seg) * plan.group_blocks >= 2 ** 32:
         raise ValueError("fused_sequence: a segment of %d hops is too long for one launch" % seg)
 
     def f32(*shape):
@@ -337,7 +337,7 @@ def fused_sequence(params, state, hops, cfg, stage_ms=None):
     args.stream = _build.stream_handle(dev)
     args.B, args.H, args.L, args.nbp, args.cep = b, h, L, nbp, lay.cep
     args.hop_stride = args.out_stride = t_len * FRAME_LENGTH
-    args.gru_w, args.gru_rb = plan.slice_width, plan.chunk_rows
+    args.gru_w, args.gru_lg, args.gru_rb = plan.slice_width, plan.block_layers, plan.chunk_rows
     args.gru_chunks, args.gru_groups = plan.chunks, plan.groups
     for g, (lo, hi) in enumerate(ops["bounds"]):
         args.cep_lo[g], args.cep_hi[g] = lo, hi

@@ -30,6 +30,10 @@ buffer that stays in L2, and meets them at one barrier per tick of a
 wavefront over the layers (layer l works on step k - l in tick k: T + L - 1
 ticks). Rows are cut into chunks that run side by side as row groups of the
 one grid, or one after the other where the card cannot hold them all.
+Stacks whose weights one block's warps cannot hold are cut into layer
+groups, each on blocks of its own (the f32 residual stream crosses between
+them through device memory), and where even that leaves a block more units
+than warps, the extra units keep their weights in shared memory.
 ``plan_launch`` decides all of that from the shapes alone (see the source's
 note for the rest).
 
@@ -39,6 +43,7 @@ Weights come stacked: wx, wh [L, H, 3H] bf16 and bx, bh [L, 3H] f32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -106,6 +111,7 @@ MAX_CHUNK_ROWS = 64
 # The wider slice halves what the blocks read of each other; on the H100 it
 # was the faster one at every shape timed.
 SLICE_WIDTHS = (16, 8)
+FRAG_TILE_BYTES = 3 * 32 * 8   # csrc/gru.cu FRAG_TILE uint2: one k tile of a unit
 
 
 def _align128(n: int) -> int:
@@ -119,17 +125,25 @@ def _ceil_div(a: int, b: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class GruPlan:
     """How one ``gru_stack`` launch is laid over the card."""
-    slice_width: int        # hidden units of every layer that a block owns
-    slices: int             # blocks of a row group: hidden / slice_width
+    slice_width: int        # hidden units of every layer of its group that a block owns
+    slices: int             # blocks of a layer group: hidden / slice_width
+    layer_groups: int       # groups of consecutive layers, each on its own blocks
+    block_layers: int       # layers of a group (the last group may hold fewer)
     chunk_rows: int         # rows of a chunk, a multiple of 16
     chunks: int             # row chunks covering the batch
     groups: int             # row chunks in flight at once, each on its own blocks
     passes: int             # chunks that the busiest group walks through
-    blocks: int             # groups * slices, all resident at once
-    k_splits: int           # k ranges per product half that warps share
+    blocks: int             # groups * slices * layer_groups, all resident at once
+    k_splits: int           # k ranges per product half
+    spilled_units: int      # units of a block past its warps (fragments in shared memory)
     smem_bytes: int         # shared memory of one block
     exchange_elems: int     # bf16 elements of the exchange buffer
     layers: int
+
+    @property
+    def group_blocks(self) -> int:
+        """Blocks of one row group, all of which meet at its barriers."""
+        return self.slices * self.layer_groups
 
     def barriers(self, t_len: int) -> int:
         """Grid barriers that the busiest row group passes in one launch: one
@@ -142,8 +156,13 @@ class GruPlan:
         return start, min(batch, start + self.chunk_rows)
 
     def slice_range(self, j: int):
-        """Hidden units [start, stop) that block ``j`` of a group owns."""
+        """Hidden units [start, stop) that block ``j`` of a layer group owns."""
         return j * self.slice_width, (j + 1) * self.slice_width
+
+    def layer_range(self, i: int):
+        """Layers [start, stop) of layer group ``i``."""
+        start = i * self.block_layers
+        return start, min(self.layers, start + self.block_layers)
 
     def group_chunks(self, group: int):
         """The chunks that row group ``group`` walks through, in order."""
@@ -151,8 +170,9 @@ class GruPlan:
 
 
 def k_splits(hidden: int, layers: int, slice_width: int) -> int:
-    """csrc/gru.cu gru_k_splits: k ranges per product half, short enough for
-    a warp's registers and enough of them to give every warp a unit."""
+    """csrc/gru.cu gru_k_splits: k ranges per product half of a block of
+    ``layers`` layers, short enough for a warp's registers and enough of
+    them to give every warp a unit."""
     k_tiles = hidden // 16
     return min(k_tiles, max(_ceil_div(k_tiles, UNIT_K_TILES),
                             WARPS // (layers * (slice_width // 8) * 2)))
@@ -160,67 +180,89 @@ def k_splits(hidden: int, layers: int, slice_width: int) -> int:
 
 def units(hidden: int, layers: int, slice_width: int) -> int:
     """csrc/gru.cu gru_units: (layer, 8-unit tile, half, k range) units of a
-    block; each is one warp's, with its weights in that warp's registers."""
+    block of ``layers`` layers; warp w runs units w, w + 16, ..."""
     return layers * (slice_width // 8) * 2 * k_splits(hidden, layers, slice_width)
 
 
+def spilled_units(hidden: int, layers: int, slice_width: int) -> int:
+    """csrc/gru.cu gru_spilled_units: units past the warps, whose weights lie
+    in shared memory instead of a warp's registers."""
+    return max(0, units(hidden, layers, slice_width) - WARPS)
+
+
 def fits_registers(hidden: int, layers: int, slice_width: int) -> bool:
-    """Whether every unit finds a warp and its weights that warp's registers."""
-    splits = k_splits(hidden, layers, slice_width)
-    return (units(hidden, layers, slice_width) <= WARPS
-            and _ceil_div(hidden // 16, splits) <= UNIT_K_TILES)
+    """Whether every unit of a block of ``layers`` layers finds a warp of its
+    own, its weights in that warp's registers."""
+    return spilled_units(hidden, layers, slice_width) == 0
 
 
 def smem_bytes(hidden: int, layers: int, slice_width: int, chunk_rows: int) -> int:
-    """csrc/gru.cu gru_smem_layout: biases, 2L operand buffers of padded
-    rows, the units' partial sums, the f32 state, two copies of the f32
-    residual stream, the tile table."""
+    """csrc/gru.cu gru_smem_layout of a block of ``layers`` layers: biases,
+    2L operand buffers of padded rows, the units' partial sums, the f32
+    state, two copies of the f32 residual stream, the tile table, the
+    spilled units' weights."""
     tiles = (chunk_rows // 16) * (slice_width // 8)
+    splits = k_splits(hidden, layers, slice_width)
     return (_align128(layers * 6 * slice_width * 4)
             + _align128(2 * layers * chunk_rows * (hidden + 8) * 2)
-            + _align128(layers * tiles * 2 * k_splits(hidden, layers, slice_width) * 384 * 4)
+            + _align128(layers * tiles * 2 * splits * 384 * 4)
             + _align128(layers * tiles * 128 * 4)
             + _align128(2 * layers * tiles * 128 * 4)
-            + _align128(layers * tiles * 2 * 4))
+            + _align128(layers * tiles * 2 * 4)
+            + _align128(spilled_units(hidden, layers, slice_width)
+                        * _ceil_div(hidden // 16, splits) * FRAG_TILE_BYTES))
 
 
+@functools.lru_cache(maxsize=None)
 def plan_launch(batch: int, hidden: int, layers: int, sms: int = H100_SMS,
                 smem_limit: int = H100_SMEM_BYTES) -> GruPlan:
     """Lay a [batch, hidden] x ``layers`` recurrence over ``sms`` SMs of
-    ``smem_limit`` bytes each (one block per SM). The slice width is the
-    first of SLICE_WIDTHS that fits; rows are spread over as many row groups as the card holds
-    beside each other, in chunks as large as shared memory takes (at most
-    MAX_CHUNK_ROWS), and what is left over goes through further passes.
-    Any batch fits. A width and depth fit while a block's 16 warps can hold
-    its weights (12 k tiles each): hidden up to 1056 at one layer, 768 at
-    two, 384 at three or four, 192 up to eight layers; beyond that the call
+    ``smem_limit`` bytes each (one block per SM). Tried in this order, the
+    first that fits a row group's blocks onto the card and a 16-row block's
+    operands into shared memory: every unit's weights in registers with the
+    fewest layer groups (one: every block holds every layer), and within
+    that the slice widths of SLICE_WIDTHS; then the same with units spilled
+    into shared memory. Rows are spread over as many row groups as the card
+    holds beside each other, in chunks as large as shared memory takes (at
+    most MAX_CHUNK_ROWS), and what is left over goes through further passes.
+    Any batch fits; on an H100 every stack that the JAX package's kernel
+    takes fits (hidden up to 1024 at one layer); beyond what fits the call
     raises ValueError."""
     if batch < 1 or layers < 1 or hidden < 16 or hidden % 16:
         raise ValueError("gru_stack: batch %d, hidden %d (a multiple of 16), layers %d"
                          % (batch, hidden, layers))
-    for width in SLICE_WIDTHS:
-        slices = hidden // width
-        if (slices > sms or not fits_registers(hidden, layers, width)
-                or smem_bytes(hidden, layers, width, 16) > smem_limit):
-            continue
-        side_by_side = sms // slices
-        rows = min(MAX_CHUNK_ROWS, 16 * _ceil_div(_ceil_div(batch, 16), side_by_side))
-        while smem_bytes(hidden, layers, width, rows) > smem_limit:
-            rows -= 16
-        # even the chunks out: no more rows a chunk than that many chunks need
-        rows = 16 * _ceil_div(_ceil_div(batch, _ceil_div(batch, rows)), 16)
-        chunks = _ceil_div(batch, rows)
-        groups = min(side_by_side, chunks)
-        return GruPlan(
-            slice_width=width, slices=slices, chunk_rows=rows, chunks=chunks, groups=groups,
-            passes=_ceil_div(chunks, groups), blocks=groups * slices,
-            k_splits=k_splits(hidden, layers, width),
-            smem_bytes=smem_bytes(hidden, layers, width, rows),
-            exchange_elems=chunks * (4 * layers - 2) * rows * hidden,
-            layers=layers)
-    raise ValueError("gru_stack: hidden %d x %d layers fits no block's registers and "
-                     "shared memory (%d bytes) at any slice width"
-                     % (hidden, layers, smem_limit))
+    for spill in (False, True):
+        for layer_groups in range(1, layers + 1):
+            per_block = _ceil_div(layers, layer_groups)
+            if _ceil_div(layers, per_block) != layer_groups:
+                continue                     # the same cut as fewer groups
+            for width in SLICE_WIDTHS:
+                slices = hidden // width
+                if (slices * layer_groups > sms
+                        or (not spill and not fits_registers(hidden, per_block, width))
+                        or smem_bytes(hidden, per_block, width, 16) > smem_limit):
+                    continue
+                side_by_side = sms // (slices * layer_groups)
+                rows = min(MAX_CHUNK_ROWS, 16 * _ceil_div(_ceil_div(batch, 16), side_by_side))
+                while smem_bytes(hidden, per_block, width, rows) > smem_limit:
+                    rows -= 16
+                # even the chunks out: no more rows a chunk than that many chunks need
+                rows = 16 * _ceil_div(_ceil_div(batch, _ceil_div(batch, rows)), 16)
+                chunks = _ceil_div(batch, rows)
+                groups = min(side_by_side, chunks)
+                return GruPlan(
+                    slice_width=width, slices=slices, layer_groups=layer_groups,
+                    block_layers=per_block, chunk_rows=rows, chunks=chunks, groups=groups,
+                    passes=_ceil_div(chunks, groups), blocks=groups * slices * layer_groups,
+                    k_splits=k_splits(hidden, per_block, width),
+                    spilled_units=spilled_units(hidden, per_block, width),
+                    smem_bytes=smem_bytes(hidden, per_block, width, rows),
+                    exchange_elems=chunks * (4 * layers - 2 + 4 * (layer_groups - 1))
+                    * rows * hidden,
+                    layers=layers)
+    raise ValueError("gru_stack: hidden %d x %d layers fits no block's shared memory "
+                     "(%d bytes) or no card of %d SMs, at any slice width and layer groups"
+                     % (hidden, layers, smem_limit, sms))
 
 
 def plan_for(x, layers: int) -> GruPlan:
@@ -251,7 +293,7 @@ def gru_stack(h0, x, wx, bx, wh, bh, return_hidden: bool = False):
         _build.require_cuda(v, "gru_stack " + name, torch.float32, (layers, 3 * hidden))
     plan = plan_for(x, layers)
     # the barrier counter of a group only grows: one count per block and barrier
-    if plan.barriers(t_len) * plan.slices >= 2 ** 32:
+    if plan.barriers(t_len) * plan.group_blocks >= 2 ** 32:
         raise ValueError("gru_stack: T = %d is too long for one launch" % t_len)
     lib = _build.library()
     y = torch.empty_like(x)
@@ -265,7 +307,7 @@ def gru_stack(h0, x, wx, bx, wh, bh, return_hidden: bool = False):
         x.data_ptr(), h0.data_ptr(), wx.data_ptr(), bx.data_ptr(), wh.data_ptr(),
         bh.data_ptr(), y.data_ptr(), hs.data_ptr() if return_hidden else None,
         h_final.data_ptr(), exchange.data_ptr(), counters.data_ptr(), t_len, b, hidden,
-        layers, plan.slice_width, plan.chunk_rows, plan.chunks, plan.groups,
+        layers, plan.slice_width, plan.block_layers, plan.chunk_rows, plan.chunks, plan.groups,
         _build.stream_handle(x.device))
     if return_hidden:
         launches_hs += 1
@@ -281,7 +323,8 @@ def grid_barriers(plan: GruPlan, count: int, device) -> None:
     below. For timing; it is not a launch of the GRU kernel."""
     counters = torch.zeros(plan.groups, dtype=torch.int32, device=device)
     status = _build.library().koala_grid_barriers(
-        counters.data_ptr(), plan.slices, plan.groups, count, _build.stream_handle(device))
+        counters.data_ptr(), plan.group_blocks, plan.groups, count,
+        _build.stream_handle(device))
     _build.check(status, "koala_grid_barriers")
 
 

@@ -82,9 +82,22 @@ def shard_batch(mesh: Mesh, batch) -> List[torch.Tensor]:
     return [rows[i * per:(i + 1) * per].to(d) for i, d in enumerate(mesh.devices)]
 
 
+def shard_state(mesh: Mesh, state):
+    """An engine state tree with the global batch leading every leaf (numpy
+    or tensors) -> this process's rows of every leaf (``local_rows``), on the
+    mesh's device. For the one-device-a-process mesh that the data-parallel
+    layer runs on."""
+    if len(mesh.devices) != 1:
+        raise ValueError("shard_state: a mesh of one device a process, not %d"
+                         % len(mesh.devices))
+    if isinstance(state, dict):
+        return {k: shard_state(mesh, v) for k, v in state.items()}
+    return shard_batch(mesh, state)[0]
+
+
 def replicate(mesh: Mesh, module: torch.nn.Module) -> List[torch.nn.Module]:
     """One copy of a parameter module on each local device."""
     return [copy.deepcopy(module).to(d) for d in mesh.devices]
 
 
-__all__ = ["Mesh", "make_mesh", "shard_batch", "replicate"]
+__all__ = ["Mesh", "make_mesh", "shard_batch", "shard_state", "replicate"]

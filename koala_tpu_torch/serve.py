@@ -93,6 +93,21 @@ def _assign(state, new) -> None:
         state.copy_(new)
 
 
+def capture_graph(body, device, warm_up=None) -> torch.cuda.CUDAGraph:
+    """``body`` captured as a CUDA graph on ``device``. ``warm_up`` (``body``
+    when not given) runs once on a side stream first, for the library
+    handles and the allocator; it must leave the live buffers as they are."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        (warm_up or body)()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    return graph
+
+
 class _StepGraph:
     """A shard's masked single-frame step as a CUDA graph: int16 hop and
     active mask in, state committed in place, int16 output out. The eager
@@ -113,16 +128,9 @@ class _StepGraph:
             _assign(shard.state, new_state)
             self.out.copy_(_to_pcm(out))
 
-        # warm-up on a side stream (caches, allocator); no stream is active,
-        # so the state is kept as it is
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            body()
+        # the warm-up runs the body itself: no stream is active, so the state
+        # is kept as it is
+        self.graph = capture_graph(body, dev)
 
     def replay(self, hop: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         """One masked step on the current stream; returns the output buffer,

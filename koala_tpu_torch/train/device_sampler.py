@@ -22,6 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
+
 P_SILENCE = 0.05
 P_SPEECH_ONLY = 0.25   # generous: the acceptance harness's hardest case is
 P_NOISE_ONLY = 0.18    # perfect pass-through of clean speech
@@ -181,10 +183,15 @@ def sample_from_tapes(speech_tape: torch.Tensor, noise_tape: torch.Tensor,
 
 
 class DeviceSampler:
-    """Holds the tapes on one device and samples repeatedly."""
+    """Holds the tapes on one device and samples repeatedly. ``device``: a
+    device string as ``create`` takes it (``best``, the card, by default) or
+    a ``torch.device``."""
 
-    def __init__(self, speech_tape, noise_tape, segment: int, device=None,
+    def __init__(self, speech_tape, noise_tape, segment: int, device="best",
                  floor_tape=None):
+        if not isinstance(device, torch.device):
+            device = resolve_device(device)
+
         def put(t):
             return None if t is None else torch.as_tensor(t, dtype=torch.float32,
                                                           device=device)

@@ -92,8 +92,8 @@ def main() -> None:
         status = lib.koala_gru_stack(
             x.data_ptr(), h0.data_ptr(), wx.data_ptr(), bx.data_ptr(), wh.data_ptr(),
             bh.data_ptr(), y.data_ptr(), None, h_final.data_ptr(), exchange.data_ptr(),
-            counters.data_ptr(), t_len, b, h, layers, plan.slice_width, plan.chunk_rows,
-            plan.chunks, plan.groups, _build.stream_handle(dev))
+            counters.data_ptr(), t_len, b, h, layers, plan.slice_width, plan.block_layers,
+            plan.chunk_rows, plan.chunks, plan.groups, _build.stream_handle(dev))
         _build.check(status, "koala_gru_stack (profiled build)")
 
     launch()

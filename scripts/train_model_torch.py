@@ -17,6 +17,11 @@ and so is the reference pair (``test.wav``, ``noise.wav``) when a directory
 that holds it is named with ``--reference-samples`` or in the environment as
 ``KOALA_REFERENCE_SAMPLES``. Training needs ``--out``; only ``--eval-only``
 falls back on the bundled model. The model file loads in both packages.
+
+``--speech A.wav ... --noise B.wav ...`` trains on tapes made from WAV files
+instead of the corpus, as ``scripts/train_model.py`` does: every speech file
+at speeds 0.9, 1.0 and 1.1, and the noise files followed by 30 s each of
+white, pink and brown noise.
 """
 
 import argparse
@@ -38,6 +43,25 @@ TRAIN_FLOOR_SEED = 300
 # held-out battery: (file tag, noise kind) of resources/audio_samples/*_dev<tag>.wav
 DEV_BATTERY = [("", "am"), ("2", "colored"), ("3", "band"), ("4", "tonal"),
                ("5", "babble"), ("6", "impulsive"), ("7", "rumble")]
+
+
+def build_wav_tapes(speech_paths, noise_paths):
+    """(speech, noise) tapes from WAV files: each speech file at speeds 0.9,
+    1.0 and 1.1, the noise files padded with 30 s each of white, pink and
+    brown noise at 0.05 (seed 7). Bit-identical to scripts/train_model.py's."""
+    from koala_tpu_torch.io import read_wav
+    from koala_tpu_torch.train.data import speed_perturb, synth_noise
+
+    rng = np.random.default_rng(7)
+    speech = []
+    for p in speech_paths:
+        s = read_wav(p).astype(np.float32) / 32768.0
+        for f in (0.9, 1.0, 1.1):
+            speech.append(speed_perturb(s, f) if f != 1.0 else s)
+    noise = [read_wav(p).astype(np.float32) / 32768.0 for p in noise_paths]
+    for color in ("white", "pink", "brown"):
+        noise.append(synth_noise(rng, 30 * 16000, color) * 0.05)
+    return np.concatenate(speech), np.concatenate(noise)
 
 
 def build_corpus_tapes(n_speech: int, n_noise: int):
@@ -170,7 +194,7 @@ def warm_start(path: str, seed: int, device):
     return merge(fresh, loaded), cfg
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=20000)
     ap.add_argument("--batch", type=int, default=128)
@@ -193,7 +217,11 @@ def main():
                     help="exit 1 unless every acceptance gate passes")
     ap.add_argument("--allow-known-gaps", action="store_true",
                     help="gates listed in tests/known_gaps.py downgrade to warnings")
-    args = ap.parse_args()
+    ap.add_argument("--speech", nargs="*", default=None,
+                    help="WAV-tape mode: speech WAV files (in place of the corpus)")
+    ap.add_argument("--noise", nargs="*", default=None,
+                    help="WAV-tape mode: noise WAV files")
+    args = ap.parse_args(argv)
     if not args.eval_only and not args.out:
         ap.error("--out is required when training (only --eval-only falls back on "
                  "the bundled model)")
@@ -210,8 +238,12 @@ def main():
         params, cfg = None, dict(mask_gru.TRAIN_CONFIG)
         if args.init_from:
             params, cfg = warm_start(args.init_from, args.seed, dev)
-        speech_tape, noise_tape, floor_tape = build_corpus_tapes(
-            args.speech_utts, args.noise_clips)
+        if args.speech or args.noise:
+            speech_tape, noise_tape = build_wav_tapes(args.speech or [], args.noise or [])
+            floor_tape = None
+        else:
+            speech_tape, noise_tape, floor_tape = build_corpus_tapes(
+                args.speech_utts, args.noise_clips)
         print("tapes: speech %.1f s, noise %.1f s"
               % (len(speech_tape) / 16000.0, len(noise_tape) / 16000.0), flush=True)
         params, cfg = train_on_device(

@@ -128,8 +128,8 @@ def test_gru_hidden_kernel_matches_plain(cuda_device, bundled):
     assert (hs - hsr).abs().max().item() <= GRU_ATOL
 
 
-def _random_gru(seed, t_len, b, hidden, layers, device):
-    scale = 1.5 / hidden ** 0.5
+def _random_gru(seed, t_len, b, hidden, layers, device, gain=1.5):
+    scale = gain / hidden ** 0.5
     return (_randn(seed, (layers, b, hidden), 0.2, device),
             _randn(seed + 1, (t_len, b, hidden), 0.3, device).bfloat16(),
             _randn(seed + 2, (layers, hidden, 3 * hidden), scale, device).bfloat16(),
@@ -141,18 +141,20 @@ def _random_gru(seed, t_len, b, hidden, layers, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t_len,b,hidden,layers", [
     (12, 1, 384, 2), (9, 17, 384, 2), (8, 64, 384, 2), (8, 128, 384, 2), (6, 300, 384, 2),
-    (0, 5, 384, 2), (16, 40, 64, 1), (16, 64, 128, 3), (5, 300, 128, 3), (7, 33, 384, 3)])
+    (0, 5, 384, 2), (16, 40, 64, 1), (16, 64, 128, 3), (5, 300, 128, 3), (7, 33, 384, 3),
+    (9, 64, 512, 3), (7, 33, 384, 5), (6, 64, 128, 12), (5, 20, 1024, 2)])
 def test_gru_kernel_shapes(cuda_device, t_len, b, hidden, layers):
     """Single-row, ragged, many-pass and wide batches, one to three layers,
-    T = 0: both variants within the GRU tolerance of the plain version and
-    bit-identical to each other, one launch a call, and the plan's
-    shared-memory size the kernel's own."""
+    T = 0, and wide stacks (layer groups, spilled units): both
+    variants within the GRU tolerance of the plain version and bit-identical
+    to each other, one launch a call, and the plan's shared-memory size the
+    kernel's own."""
     from koala_tpu_torch.ops.kernels import _build
 
     args = _random_gru(10, t_len, b, hidden, layers, cuda_device)
     plan = gru.plan_for(args[1], layers)
     assert _build.library().koala_gru_smem_bytes(
-        hidden, layers, plan.slice_width, plan.chunk_rows) == plan.smem_bytes
+        hidden, plan.block_layers, plan.slice_width, plan.chunk_rows) == plan.smem_bytes
     before = (gru.launches, gru.launches_hs)
     y0, hf0 = gru.gru_stack(*args)
     y, hs, hf = gru.gru_stack(*args, return_hidden=True)
@@ -168,6 +170,32 @@ def test_gru_kernel_shapes(cuda_device, t_len, b, hidden, layers):
     assert (y.float() - yr.float()).abs().max().item() <= GRU_ATOL
     assert (hf - hr).abs().max().item() <= GRU_ATOL
     assert (hs - hsr).abs().max().item() <= GRU_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len,b,hidden,layers", [(6, 8, 256, 17), (4, 8, 128, 67)])
+def test_gru_kernel_deep_stacks(cuda_device, t_len, b, hidden, layers):
+    """The deepest stacks that koala_tpu's kernel takes (three and six layer
+    groups, units spilled into shared memory): both variants bit-identical
+    to each other; h and hs within GRU_ATOL of the plain version, y within
+    GRU_ATOL plus one bf16 spacing of its size (2**-7 |y|): the residual
+    stream grows with the depth (|y| up to 14 here), and bf16 rounds it
+    relative to its size. The weights have gain 0.5: at the other tests'
+    1.5 a random stack this deep amplifies a flipped rounding layer by layer,
+    far past GRU_ATOL (hs 0.70 apart in a run on an H100)."""
+    args = _random_gru(10, t_len, b, hidden, layers, cuda_device, gain=0.5)
+    plan = gru.plan_for(args[1], layers)
+    assert plan.layer_groups > 1 and plan.spilled_units > 0
+    y0, hf0 = gru.gru_stack(*args)
+    y, hs, hf = gru.gru_stack(*args, return_hidden=True)
+    yr, hsr, hr = gru.gru_stack_ref(*args, return_hidden=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y0) and torch.equal(hf, hf0) and torch.equal(hs[-1], hf)
+    errs = {"y": (y.float() - yr.float()).abs(), "h_final": (hf - hr).abs(),
+            "hs": (hs - hsr).abs()}
+    report = {k: float(v.max()) for k, v in errs.items()}
+    assert (errs["y"] <= GRU_ATOL + 2.0 ** -7 * yr.float().abs()).all(), report
+    assert report["h_final"] <= GRU_ATOL and report["hs"] <= GRU_ATOL, report
 
 
 @pytest.mark.cuda
@@ -277,10 +305,11 @@ def test_fused_kernel_matches_plain(cuda_device, bundled):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t_len", [(1, 40), (17, 40), (128, 40), (300, 40), (64, 8),
-                                     (5, 1), (300, 104)])
+                                     (5, 1), (300, 104), (512, 64)])
 def test_fused_kernel_shapes(cuda_device, bundled, b, t_len):
-    """Single-stream, ragged and wide batches, T = 8 and T = 1, and B = 300 x
-    T = 104, which crosses a workspace segment (99 hops): from a state that
+    """Single-stream, ragged and wide batches, T = 8 and T = 1, B = 300 x
+    T = 104, which crosses a workspace segment (99 hops), and the bench's
+    B = 512 over two segments (58 hops each): from a state that
     is not zero, >= 40 dB from the plain version on output and state close;
     two launches give the same bits."""
     tree, cfg = bundled
@@ -310,7 +339,8 @@ def test_fused_kernel_shapes(cuda_device, bundled, b, t_len):
 @pytest.mark.parametrize("overrides", [
     dict(hidden=64, num_layers=1, snr_bands=24),      # bands padded to 32, two idle warp columns
     dict(hidden=128, num_layers=3, cep_feats=0),      # no cepstral stage
-    dict(hidden=208, num_layers=1, snr_bands=40)])    # ragged passes: 208 and 48 columns
+    dict(hidden=208, num_layers=1, snr_bands=40),     # ragged passes: 208 and 48 columns
+    dict(hidden=512, num_layers=3)])                  # the GRU stage in two layer groups
 def test_fused_kernel_other_configs(cuda_device, overrides):
     """Widths and depths away from the bundled model's, on seeded random
     weights with the gate opened: >= 40 dB from the plain version, chunked
@@ -369,7 +399,7 @@ def test_fused_stage_times(cuda_device, bundled):
 @pytest.mark.cuda
 def test_fused_gate_shared_memory(cuda_device, bundled):
     """The bundled model has a GRU launch plan and its widest stage fits the
-    card's shared memory; twelve layers have no plan, and at hidden = 1024 the
+    card's shared memory; 768 x 3 layers have no plan, and at hidden = 1024 the
     back stage's block does not fit. A refused shape raises, it does not fall
     back."""
     from koala_tpu_torch.ops.kernels import _build
@@ -380,8 +410,8 @@ def test_fused_gate_shared_memory(cuda_device, bundled):
         engine_fused.SMEM_LIMIT
     assert engine_fused.fused_sequence_supported(cfg, 64, 376, cuda_device)
     assert engine_fused.fused_sequence_supported(cfg, 1, 1, cuda_device)
-    assert not engine_fused.fused_sequence_supported(dict(cfg, num_layers=12), 64, 376,
-                                                     cuda_device)
+    assert not engine_fused.fused_sequence_supported(dict(cfg, hidden=768, num_layers=3), 64,
+                                                     376, cuda_device)
     assert _build.library().koala_engine_fused_smem(lay.nbp, 1024) > engine_fused.SMEM_LIMIT
     assert not engine_fused.fused_sequence_supported(dict(cfg, hidden=1024), 64, 376,
                                                      cuda_device)
@@ -389,7 +419,7 @@ def test_fused_gate_shared_memory(cuda_device, bundled):
     state = make_engine("mask_gru", cfg).init_state((4,), cuda_device)
     with pytest.raises(ValueError):
         engine_fused.fused_sequence(params, state, torch.zeros((4, 8, 256), device=cuda_device),
-                                    dict(cfg, num_layers=12))
+                                    dict(cfg, hidden=768, num_layers=3))
 
 
 @pytest.mark.cuda
@@ -538,3 +568,51 @@ def test_trace_records_the_card_kernels(cuda_device, tmp_path):
         events = json.load(f)["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("gru" in k for k in kernels) and any("floor" in k for k in kernels), kernels[:20]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,layers,gru_launches", [(512, 3, 1), (384, 2, 1), (768, 3, 0)])
+def test_gru_gate_on_the_card(cuda_device, tmp_path, hidden, layers, gru_launches):
+    """A model with a launch plan launches the GRU kernel from process_chunk:
+    384 x 2 in one layer group, 512 x 3 in two. One without (768 x 3, which
+    koala_tpu's kernel refuses too) runs the scan branch (the floor kernel
+    launches, the GRU kernel does not). All >= 35 dB from the port on the
+    CPU."""
+    cfg = dict(mask_gru.TRAIN_CONFIG, hidden=hidden, num_layers=layers)
+    path = str(tmp_path / "m.pv")
+    params_io.save_params(path, mask_gru.init_params(torch.Generator().manual_seed(5), cfg), cfg)
+    pcm = (np.random.default_rng(10).standard_normal((6, 24 * 256)) * 3000).astype(np.int16)
+    kb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=6, model_path=path, device="gpu")
+    before = (floor.launches, gru.launches)
+    out = kb.process_chunk(pcm)
+    assert (floor.launches - before[0], gru.launches - before[1]) == (1, gru_launches)
+    cpu = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=6, model_path=path, device="cpu")
+    assert snr_db(cpu.process_chunk(pcm).astype(np.float64), out.astype(np.float64)) > 35.0
+
+
+@pytest.mark.cuda
+def test_graphed_step_chain_equals_the_eager_chain(cuda_device):
+    """bench_torch's chain of steps replayed from a CUDA graph leaves the
+    bits that the same steps made eagerly on the card leave."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import bench_torch
+
+    engine, params = bench_torch.load_engine(cuda_device)
+    hop = _randn(12, (256,), 0.05, cuda_device)
+    with torch.inference_mode():
+        chain = bench_torch.StepChain(engine, params, engine.init_state((), cuda_device),
+                                      hop.clone())
+        assert chain.graph is not None
+        chain.run(40)
+        state, out = engine.init_state((), cuda_device), hop
+        for _ in range(40):
+            state, out = engine.step(params, state, out)
+    torch.cuda.synchronize()
+    assert torch.equal(chain.hop, out)
+    for k in ("input_carry", "ola"):
+        assert torch.equal(chain.state[k], state[k])
+    for k in ("h", "floor"):
+        assert torch.equal(chain.state["model"][k], state["model"][k])

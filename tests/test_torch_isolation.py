@@ -196,3 +196,58 @@ def test_tpu_and_bad_grammar_raise():
 def test_cpu_is_explicit():
     for device in ("cpu", "cpu:1", "cpu:4"):
         assert resolve_torch_device(parse_device(device)) == torch.device("cpu")
+
+
+PORT_SCRIPTS = [os.path.join(ROOT, "bench_torch.py")] + [
+    os.path.join(ROOT, "demo", "koala_demo_%s_torch.py" % d)
+    for d in ("file", "longform", "batch", "mic")]
+
+
+def test_bench_and_demos_import_no_jax_optax_or_koala_tpu():
+    """The port's bench and demos, loaded as modules with the package
+    modules their functions import: none of the three is loaded, and no line
+    of their sources names one."""
+    code = ("import sys, importlib.util\n"
+            "for i, path in enumerate(%r):\n"
+            "    spec = importlib.util.spec_from_file_location('s%%d' %% i, path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "import koala_tpu_torch, koala_tpu_torch.io, koala_tpu_torch.serve\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', "
+            "'koala_tpu')]; print(bad); sys.exit(1 if bad else 0)" % PORT_SCRIPTS)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    bad = []
+    for path in PORT_SCRIPTS:
+        with open(path) as fh:
+            for i, line in enumerate(fh, 1):
+                if (re.search(r"\b(import|from)\s+(jax|optax)\b", line)
+                        or re.search(r"\bkoala_tpu(?!_torch)\b", line)):
+                    bad.append("%s:%d %s" % (path, i, line.strip()))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("script", PORT_SCRIPTS, ids=os.path.basename)
+def test_bench_and_demos_ask_for_the_card_by_default(script, tmp_path, monkeypatch):
+    """Run with no --device, each raises the typed error without a card."""
+    import importlib.util
+
+    import numpy as np
+
+    from koala_tpu_torch.io import write_wav
+
+    wav = str(tmp_path / "in.wav")
+    write_wav(wav, np.zeros(4096, np.int16))
+    args = {"bench_torch.py": [],
+            "koala_demo_file_torch.py": ["--input_path", wav, "--output_path", wav + ".out"],
+            "koala_demo_longform_torch.py": ["--input_path", wav, "--output_path",
+                                             wav + ".out"],
+            "koala_demo_batch_torch.py": ["--input_dir", str(tmp_path), "--output_dir",
+                                          str(tmp_path / "out")],
+            "koala_demo_mic_torch.py": ["--input_path", wav]}[os.path.basename(script)]
+    spec = importlib.util.spec_from_file_location("_port_script", script)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(KoalaInvalidArgumentError):
+        module.main(args)

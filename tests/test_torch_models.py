@@ -119,6 +119,19 @@ def test_bundled_model_loads_as_in_jax():
         np.testing.assert_array_equal(v.numpy(), t_flat[k.replace(".", "/")])
 
 
+@pytest.mark.parametrize("weights", ["train_config", "bundled"])
+def test_num_params_matches_jax(weights):
+    """The same count as koala_tpu's num_params on the same weights, in the
+    1.5M-2.5M band that tests/test_engine.py pins."""
+    if weights == "bundled":
+        tree, _ = jio.load_params(tio.default_model_path())
+    else:
+        tree = jax_params(jmask.TRAIN_CONFIG, 0)
+    n = tmask.num_params(tio.params_from_numpy(tree, "cpu"))
+    assert n == jmask.num_params(tree)
+    assert 1_500_000 < n < 2_500_000, n
+
+
 def test_save_params_round_trip(tmp_path):
     tree = jax_params(jmask.TRAIN_CONFIG, 5)
     module = tio.params_from_numpy(tree, "cpu")

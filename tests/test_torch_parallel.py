@@ -11,7 +11,8 @@ from koala_tpu.constants import FRAME_LENGTH
 from koala_tpu.engine.core import make_engine as jmake_engine
 from koala_tpu.models import params_io as jio
 from koala_tpu.parallel.runner import wash_corpus as jwash_corpus
-from koala_tpu_torch.parallel import CorpusRunner, make_mesh, shard_batch, wash_corpus
+from koala_tpu_torch.parallel import (CorpusRunner, make_mesh, shard_batch, shard_state,
+                                      wash_corpus)
 
 import torch_ref  # noqa: F401  (pins torch to 2 threads)
 
@@ -27,6 +28,28 @@ def test_mesh_of_cpu_shards():
     assert torch.equal(torch.cat(blocks), torch.arange(24.0).reshape(8, 3))
     with pytest.raises(ValueError):
         mesh.local_rows(6)
+
+
+def test_shard_state_takes_the_local_rows_of_every_leaf():
+    """A one-device mesh of one process holds every row; each leaf comes
+    back on the mesh's device with its batch axis whole (numpy leaves
+    become tensors)."""
+    from koala_tpu_torch.engine.core import make_engine
+    from koala_tpu_torch.models.mask_gru import TRAIN_CONFIG
+
+    state = make_engine("mask_gru", TRAIN_CONFIG).init_state((6,), "cpu")
+    state["ola"] = torch.arange(6 * 256, dtype=torch.float32).reshape(6, 256)
+    state["model"]["floor"] = np.arange(6 * 32, dtype=np.float32).reshape(6, 32)
+    mesh = make_mesh(["cpu"])
+    assert mesh.local_rows(6) == (0, 6)
+    local = shard_state(mesh, state)
+    assert set(local) == set(state) and set(local["model"]) == {"h", "floor"}
+    assert torch.equal(local["ola"], state["ola"])
+    assert torch.equal(local["model"]["floor"], torch.as_tensor(state["model"]["floor"]))
+    assert local["model"]["h"].shape == (6, 2, 384)
+    assert all(t.device.type == "cpu" for t in (local["ola"], local["input_carry"]))
+    with pytest.raises(ValueError):
+        shard_state(make_mesh(CPU4), state)
 
 
 @pytest.mark.parametrize("model", ["mmse_model", "untrained_model"])

@@ -107,3 +107,16 @@ def test_device_sampler_refuses_short_tapes(tapes):
     speech, noise = tapes
     with pytest.raises(ValueError):
         tds.DeviceSampler(speech[:1000], noise, 8 * FRAME_LENGTH, device="cpu")
+
+
+def test_device_sampler_asks_for_the_card_by_default(tapes, monkeypatch):
+    """With no device the tapes go to the card, as koala_tpu's go to the
+    default accelerator; without a card that is the typed error."""
+    from koala_tpu_torch import KoalaInvalidArgumentError
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    speech, noise = tapes
+    with pytest.raises(KoalaInvalidArgumentError):
+        tds.DeviceSampler(speech, noise, 8 * FRAME_LENGTH)
+    assert tds.DeviceSampler(speech, noise, 8 * FRAME_LENGTH,
+                             device=torch.device("cpu")).speech.device.type == "cpu"

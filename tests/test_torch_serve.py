@@ -12,7 +12,7 @@ import koala_tpu
 from koala_tpu_torch.constants import FRAME_LENGTH
 from koala_tpu_torch.serve import StreamingServer
 
-import torch_ref  # noqa: F401  (pins torch to 2 threads)
+from torch_ref import assert_near_jax
 
 
 def _drain(server, stream, expected_samples, timeout=30.0):
@@ -40,27 +40,13 @@ def _jax_direct(access_key, model, pcm):
         k.delete()
 
 
-def _assert_near_jax(got, want):
-    """Within 2 LSB of koala_tpu's output (tests/test_serve.py's bound
-    between a batched pool and a single stream), save a handful of samples
-    at 3 LSB. Across packages the float32 sums run in another order, and an
-    input can sit where that flips a bfloat16 rounding of a product operand:
-    on the bundled model and this file's second draw, koala_tpu's own
-    process_chunk and process differ by 3 LSB on 34 of 2048 samples, and the
-    port's pool lands on 2 samples at 3 LSB."""
-    assert got.shape == want.shape
-    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
-    assert diff.max() <= 3, diff.max()
-    assert np.count_nonzero(diff > 2) <= max(2, len(diff) // 1000), np.count_nonzero(diff > 2)
-
-
 def _server(access_key, model, **kw):
     return StreamingServer(access_key, model_path=model, device="cpu", **kw)
 
 
 def test_server_matches_direct_stream(access_key, serve_model, rng):
     """Frames served through the async pipeline match koala_tpu's
-    single-stream engine (``_assert_near_jax``)."""
+    single-stream engine (``assert_near_jax``)."""
     t = 12
     pcm = (rng.standard_normal(t * FRAME_LENGTH) * 6000).astype(np.int16)
     direct = _jax_direct(access_key, serve_model, pcm)
@@ -70,7 +56,7 @@ def test_server_matches_direct_stream(access_key, serve_model, rng):
         served = _drain(server, 2, len(pcm))
     finally:
         server.close()
-    _assert_near_jax(served, direct)
+    assert_near_jax(served, direct)
 
 
 def test_server_interleaved_streams(access_key, serve_model, rng):
@@ -90,7 +76,7 @@ def test_server_interleaved_streams(access_key, serve_model, rng):
     finally:
         server.close()
     for pcm, out in ((pcm0, out0), (pcm1, out1)):
-        _assert_near_jax(out, _jax_direct(access_key, serve_model, pcm))
+        assert_near_jax(out, _jax_direct(access_key, serve_model, pcm))
 
 
 def test_close_drains_inflight_output(access_key, serve_model, rng):

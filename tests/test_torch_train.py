@@ -3,6 +3,7 @@ the CPU at a small size: loss terms, loss and gradients, the optimizer and its
 schedule, the evaluation harness, and a trained model crossing packages."""
 
 import importlib
+import importlib.util
 import os
 import time
 
@@ -442,3 +443,45 @@ def test_pseudo_real_copy_is_bit_identical(fixtures):
     for case in want:
         for a, b in zip(got[case], want[case]):
             np.testing.assert_array_equal(a, b)
+
+
+def _script(name):
+    """A training script of the repository loaded by path as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "_script_" + name, os.path.join(ROOT, "scripts", name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+WAV_PAIR = (os.path.join(AUDIO, "speech_dev.wav"), os.path.join(AUDIO, "noise_dev.wav"))
+
+
+def test_wav_tapes_match_the_jax_script():
+    """--speech/--noise tapes: scripts/train_model_torch.py's build_wav_tapes
+    equals scripts/train_model.py's bit for bit (speed perturbation, colored
+    noise from default_rng(7))."""
+    want = _script("train_model").build_wav_tapes([WAV_PAIR[0]], [WAV_PAIR[1]])
+    got = _script("train_model_torch").build_wav_tapes([WAV_PAIR[0]], [WAV_PAIR[1]])
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+
+
+def test_wav_tape_mode_trains(tmp_path, monkeypatch, capsys):
+    """The script's WAV-tape mode takes a train step on the CPU from the two
+    files (no corpus is built) and writes a model file that loads."""
+    script = _script("train_model_torch")
+
+    def no_corpus(*args):
+        raise AssertionError("the WAV-tape mode built corpus tapes")
+    monkeypatch.setattr(script, "build_corpus_tapes", no_corpus)
+    monkeypatch.setattr(script, "eval_all", lambda params, cfg, reference=None: {})
+    out = str(tmp_path / "wav.pv")
+    script.main(["--cpu", "--steps", "1", "--batch", "2", "--segment-frames", "8",
+                 "--speech", WAV_PAIR[0], "--noise", WAV_PAIR[1], "--out", out])
+    speech, noise = script.build_wav_tapes([WAV_PAIR[0]], [WAV_PAIR[1]])
+    assert ("tapes: speech %.1f s, noise %.1f s" % (len(speech) / 16000.0, len(noise) / 16000.0)
+            in capsys.readouterr().out)
+    tree, cfg = tparams_io.load_params(out)
+    assert cfg["snr_bands"] == 32 and np.isfinite(tree["enc"]["w"]).all()

@@ -63,6 +63,21 @@ def snr_db(ref, x):
     return 10 * np.log10(np.sum(ref ** 2) / max(np.sum(err ** 2), 1e-30))
 
 
+def assert_near_jax(got, want):
+    """Within 2 int16 LSB of koala_tpu's output (tests/test_serve.py's bound
+    between a batched pool and a single stream), save a handful of samples
+    at 3 LSB: at most 0.1% of them, and at least 2. Across packages the
+    float32 sums run in another order, and an input can sit where that flips
+    a bfloat16 rounding of a product operand: on the bundled model and one of
+    tests/test_torch_serve.py's draws, koala_tpu's own process_chunk and
+    process differ by 3 LSB on 34 of 2048 samples, and the port's pool lands
+    on 2 samples at 3 LSB."""
+    assert got.shape == want.shape, (got.shape, want.shape)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 3, diff.max()
+    assert np.count_nonzero(diff > 2) <= max(2, len(diff) // 1000), np.count_nonzero(diff > 2)
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA card; tests marked ``cuda`` skip where there is none (decided
