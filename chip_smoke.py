@@ -11,7 +11,12 @@
    ``KoalaBatch.enhance`` (the fused engine's kernels), at B = 64 streams of
    6.0 s (T = 376 hops). Checks the delay contract, reset reproducing a fresh
    stream bit for bit, and ``process_chunk`` and ``enhance`` on the card
-   against the port on the CPU for two streams (>= 35 dB).
+   against the port on the CPU for two streams (>= 35 dB). One stream's
+   ``Koala.enhance`` over 6.0 s must launch the floor and GRU kernels once
+   each (a batch of one) and call no plain version; it is held against the
+   port on the CPU (>= 35 dB), its kernels against their plain versions on
+   its inputs, and its time stands beside the scan branch's on the same
+   input.
 3. Holds each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it: floor bit-identical, GRU within its stated
    tolerance, fused >= 40 dB, chunked equal to continuous and launch equal to
@@ -78,7 +83,15 @@
    calls; the StreamingServer at 128 streams, chunks of 64, for 2 s, and its
    latency at 25/50/100% occupancy; the PCIe link; one stream's step, its
    device time from a CUDA graph of chained steps. Prints bench.py's record
-   as its own JSON line.
+   as its own JSON line. Then ``scripts/bench_sweep_torch.py``'s sections 1
+   and 1b at B = 512 x 376 (``sequence``, ``sequence_fast`` by stage, the
+   GRU kernel alone and their bounds; the no-tracker ablation, STFT + iSTFT,
+   the floor kernel alone) and ``scripts/pod_wash_torch.py`` on the card's
+   one-device mesh, each record on a line of its own; the floor and GRU
+   kernels are held against their plain versions on the inputs each of the
+   two gave them (the unfused ``sequence`` at B = 512 x 376, the wash's tail
+   hops after its fused segments), as on the server's backlog round and the
+   bench's first serving round.
 9. The gate of the GRU kernel: seeded ``init_params`` models run
    ``KoalaBatch.process_chunk`` and ``enhance`` at B = 64 x 64 hops on the
    card, >= 35 dB from the port on the CPU. Hidden 384 x 2 and 512 x 3 (two
@@ -119,11 +132,6 @@ import time
 import numpy as np
 import torch
 
-# Published peaks of one H100 SXM (NVIDIA data sheet; dense, at 700 W).
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
-F32_FLOPS = 67e12
-
 B, T = 64, 376                 # streams, hops per stream (6.0 s of audio)
 PROCESS_FRAMES = 300           # per-frame Koala.process calls
 ACCESS_KEY = "SMOKETEST0=="
@@ -147,6 +155,9 @@ BENCH_SERVE = dict(serve_streams=128, serve_secs=2.0, serve_chunk=64)
 # 7 workspace segments (segment_hops(512, frame_bytes(384, 32)) = 58 hops) of 5 stages
 BENCH_FUSED_LAUNCHES = 35
 GATE_B, GATE_T = 64, 64        # the gate phase's process_chunk
+SINGLE_N = 6 * 16000           # one stream's Koala.enhance: the 6.0 s mix, 376 hops
+SWEEP_ITERS = 3                # bench_sweep_torch.py's sections 1 and 1b: timed calls
+POD_WASH_ARGS = ["--utterances", "256", "--utterance-seconds", "6.0"]   # 4 batches of 64
 # (hidden, layers, has a GRU launch plan, one train step) of the gate phase
 GATE_MODELS = ((384, 2, True, False), (512, 3, True, True), (768, 3, False, True))
 
@@ -169,26 +180,6 @@ def snr_db(ref, x) -> float:
     ref = torch.as_tensor(ref).double().cpu()
     err = torch.as_tensor(x).double().cpu() - ref
     return float(10 * torch.log10((ref ** 2).sum() / (err ** 2).sum().clamp_min(1e-30)))
-
-
-def time_ms(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
-    """Mean milliseconds of ``fn`` on the card (CUDA events, after warm-up).
-    ``queued``: the calls are made while the card is busy with a spin kernel
-    of about 20 ms, so they wait in the stream and run back to back. That is
-    the card's time for a kernel of a few microseconds, which the host cannot
-    launch as fast as the card runs it: without it the events time the host."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if queued:
-        torch.cuda._sleep(40_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def clone(x):
@@ -247,21 +238,6 @@ def cosine(a, b) -> float:
     return float(torch.dot(a, b) / (a.norm() * b.norm()).clamp_min(1e-300))
 
 
-def gru_bound(t_len, b, h, layers, hidden_out: bool):
-    """Least time (ms) of the GRU stack on this card, by bytes and by
-    operations: x and y bf16, h in and out f32, the weights once, and with
-    ``hidden_out`` the streamed states hs [T, L, B, H] f32; bf16 products on
-    the tensor cores beside the f32 gate math on the CUDA cores (the two run
-    side by side, so the slower of them)."""
-    n_bytes = (2 * t_len * b * h * 2 + 2 * layers * b * h * 4
-               + 2 * layers * h * 3 * h * 2 + 2 * layers * 3 * h * 4
-               + (t_len * layers * b * h * 4 if hidden_out else 0))
-    mm = t_len * layers * 2 * (2 * b * h * 3 * h)
-    ew = t_len * layers * b * h * 16 + t_len * layers * b * 3 * h * 2
-    return {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
-            "operations": max(mm / BF16_TENSOR_FLOPS, ew / F32_FLOPS) * 1e3}
-
-
 def cudnn_gru_yardstick(xg, h0, training: bool):
     """The library yardstick of the GRU stack: one cuDNN ``nn.GRU`` per layer
     in bf16 with residual adds (gate order r, z, n there: the same work, not
@@ -288,6 +264,8 @@ def gru_launch_keys(gru, x, layers):
     """What the plan of a GRU launch on x [T, B, H] says, and the time of its
     chain of grid barriers alone on the same grid: the floor that the
     dependent ticks of this design cannot go below."""
+    from koala_tpu_torch.profiling import time_ms
+
     plan = gru.plan_for(x, layers)
     n = plan.barriers(x.shape[0])
     return {"sequential_floor_ms": time_ms(lambda: gru.grid_barriers(plan, n, x.device), 10),
@@ -303,6 +281,8 @@ def gru_shape_checks(gru, lib, dev, weights):
     (``weights``: its stacked wx, bx, wh, bh), narrow stacks of one and three
     layers on seeded random weights, T = 0; both variants each time. Then
     chunked against continuous and launch against launch, bit for bit."""
+    from koala_tpu_torch.profiling import time_ms
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(31)
 
@@ -366,7 +346,7 @@ def gru_shape_checks(gru, lib, dev, weights):
     w = random_weights(h, layers)
     h0, x = randn(layers, B, h) * 0.2, (randn(T, B, h) * 0.3).bfloat16()
     ms = time_ms(lambda: gru.gru_stack(h0, x, *w), 10)
-    bound = gru_bound(T, B, h, layers, hidden_out=False)
+    bound = gru.bound(T, B, h, layers, hidden_out=False)
     keys = gru_launch_keys(gru, x, layers)
     print("gru wide layout H=%d L=%d at T=%d B=%d (%d layer groups, %d blocks, %d passes): "
           "ms %.4f bound_ms %.4f (%s) sequential_floor_ms %.4f (%d barriers) on %s"
@@ -451,33 +431,6 @@ def fused_shape_checks(engine_fused, engine, params, cfg, dev):
                   "for bit" % (crossing - 5, 5, t_len))
 
 
-def fused_bound(engine_fused, params, cfg, b, t_len):
-    """Least time (ms) of the fused engine over hops [b, t_len, 256] on this
-    card, by bytes (hops in, out, the state both ways, the weights once) and
-    by operations (bf16 products on the tensor cores, the f32 elementwise
-    work beside them)."""
-    ops = engine_fused.prepare(params, cfg)
-    lay = ops["layout"]
-    h, L = lay.hidden, lay.layers
-    w_bytes = sum(ops[n].numel() * ops[n].element_size() for n in (
-        "fwd", "inv", "band", "cepb", "wenc", "benc", "wcep", "wdec", "bdec",
-        "wx", "bx", "wh", "bh"))
-    s_bytes = b * (256 * 4 + 2 * 256 * 4 + 2 * lay.nb * 4 + 2 * L * h * 4)
-    f_bytes = 2 * b * t_len * 256 * 4 + s_bytes + w_bytes
-    # the function's real widths, not the kernel's padded ones: 257 bins
-    # (514 re|im DFT columns), nb bands, 161 cepstral lags, the encoder's
-    # bins + 2 nb + cep inputs, 257 mask columns + the gate
-    bins = cfg["bins"]
-    enc_in = bins + 2 * lay.nb + lay.cep
-    per_row_mm = 2 * (512 * 2 * bins + bins * lay.nb + (bins * 161 if lay.cep else 0) + enc_in * h
-                      + L * 2 * h * 3 * h + h * (bins + 1) + 2 * bins * 512)
-    per_row_ew = bins * 12 + lay.nb * 12 + lay.cep * (161 + h * 2) + h * 12 \
-        + L * h * 20 + bins * 10 + 256 * 2
-    return {"bytes": f_bytes / HBM_BYTES_PER_S * 1e3,
-            "operations": max(b * t_len * per_row_mm / BF16_TENSOR_FLOPS,
-                              b * t_len * per_row_ew / F32_FLOPS) * 1e3}
-
-
 def grad_agreement(name, got, want):
     """(cosine, relative norm difference) of two gradients; fails the run
     outside GRAD_COS / GRAD_NORM."""
@@ -496,6 +449,7 @@ def training_phases(kt, dev, card, reset_counts, counts):
     from koala_tpu_torch.models import mask_gru as mask_gru_model
     from koala_tpu_torch.models import params_io
     from koala_tpu_torch.ops.kernels import floor, gru
+    from koala_tpu_torch.profiling import time_ms
     from koala_tpu_torch.train import corpus
     from koala_tpu_torch.train.device_sampler import sample_from_tapes
 
@@ -742,7 +696,7 @@ def training_phases(kt, dev, card, reset_counts, counts):
 
     # ---- the gru_stack_hs entry: times and bound at the main path's shapes
     t_len, b, h = xg.shape
-    g_bound = gru_bound(t_len, b, h, L, hidden_out=True)
+    g_bound = gru.bound(t_len, b, h, L, hidden_out=True)
     entry = {
         "name": "gru_stack_hs", "route": "cuda", "source": "koala_tpu_torch/csrc/gru.cu",
         "replaces": "koala_tpu/ops/pallas/gru.py:103", "variant": "return_hidden=True",
@@ -754,7 +708,7 @@ def training_phases(kt, dev, card, reset_counts, counts):
         "library_ms": time_ms(cudnn_gru_yardstick(xg, h0, training=True), 10),
         "shape": [t_len, b, h, L], **gru_launch_keys(gru, xg, L)}
     hr, xr = random_inputs(RECIPE_B, RECIPE_T)
-    r_bound = gru_bound(RECIPE_T, RECIPE_B, h, L, hidden_out=True)
+    r_bound = gru.bound(RECIPE_T, RECIPE_B, h, L, hidden_out=True)
     r_keys = gru_launch_keys(gru, xr, L)
     print("gru_stack_hs at B=%d T=%d: %.3f ms (inference variant %.3f ms), bound_ms %.4f "
           "(%s), sequential floor %.4f ms (%d barriers, %d x %d blocks) on %s"
@@ -806,10 +760,228 @@ def pull_all(srv, n_streams, frames, deadline_s=120.0):
     return got
 
 
+class PlainCalls:
+    """Counts the calls of the floor's and the GRU's plain versions (the
+    scan branch's step included) while installed."""
+
+    NAMES = (("koala_tpu_torch.models.mask_gru", "floor_scan_ref"),
+             ("koala_tpu_torch.models.mask_gru", "_gru_recurrent"),
+             ("koala_tpu_torch.ops.kernels.floor", "floor_scan_ref"),
+             ("koala_tpu_torch.ops.kernels.gru", "gru_stack_ref"))
+
+    def __enter__(self):
+        self.calls, self.orig = 0, []
+        for mod_name, name in self.NAMES:
+            module = importlib.import_module(mod_name)
+            fn = getattr(module, name)
+            self.orig.append((module, name, fn))
+
+            def counted(*args, _fn=fn, **kwargs):
+                self.calls += 1
+                return _fn(*args, **kwargs)
+            setattr(module, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.orig:
+            setattr(module, name, fn)
+
+
+def load_script(name):
+    """A script of scripts/ as a module, to run its functions in this process."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(here, "scripts",
+                                                                     name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def hold_recurrences(path, rec_floor, rec_gru):
+    """The floor and GRU kernels against their plain versions on the inputs
+    that ``path`` gave them (the first call of each, kept by a ``Recorder`` on
+    ``mask_gru``): the floor bit for bit, the GRU within ``GRU_MAX_ABS`` and
+    ``GRU_SNR_DB``. Returns the shapes and the GRU's error."""
+    from koala_tpu_torch.ops.kernels import floor, gru
+
+    for rec in (rec_floor, rec_gru):
+        if rec.args is None:
+            fail("%s made no call to mask_gru.%s" % (path, rec.name))
+    f0, lb, rise = rec_floor.args
+    h0, xg, wx, bx, wh, bh = rec_gru.args
+    with torch.inference_mode():
+        kf, kfl = floor.floor_scan(f0, lb, rise)
+        rf, rfl = floor.floor_scan_ref(f0, lb, rise)
+        ky, kh = gru.gru_stack(h0, xg, wx, bx, wh, bh)
+        ry, rh = gru.gru_stack_ref(h0, xg, wx, bx, wh, bh)
+    torch.cuda.synchronize()
+    if not (torch.equal(kf, rf) and torch.equal(kfl, rfl)):
+        fail("floor kernel differs from its plain version on %s's inputs, lb %s"
+             % (path, list(lb.shape)))
+    g_err = max(float((ky.float() - ry.float()).abs().max()), float((kh - rh).abs().max()))
+    g_snr = snr_db(ry.float(), ky.float())
+    print("%s: floor lb %s bit-identical to its plain version; GRU x %s (%d layers) max|err| "
+          "%.4g (%.1f dB) from its plain version" % (path, list(lb.shape), list(xg.shape),
+                                                     h0.shape[0], g_err, g_snr))
+    if g_snr < GRU_SNR_DB or g_err > GRU_MAX_ABS:
+        fail("GRU kernel outside its tolerance on %s's inputs: %.4g, %.1f dB"
+             % (path, g_err, g_snr))
+    return {"floor_shape": list(lb.shape), "gru_shape": list(xg.shape) + [h0.shape[0]],
+            "gru_max_abs_err": g_err, "gru_snr_db": g_snr}
+
+
+def single_stream_phase(kt, dev, card, reset_counts, counts, pcm):
+    """Phase 2b: one stream's ``Koala.enhance`` over the 6.0 s mix on the
+    card. The recurrences take a batch of one: the floor and GRU kernels
+    launch once each a call, and no plain version runs. Its output against
+    the port's on the CPU (>= 35 dB), both kernels against their plain
+    versions on the inputs this path gave them, and its time beside that of
+    the scan branch (the plain floor scan and the step loop, which the card
+    ran for one stream before) on the same input. Returns the launches and
+    what the kernels showed on this path."""
+    from koala_tpu_torch.engine.core import Engine
+    from koala_tpu_torch.models import mask_gru as mask_gru_model
+    from koala_tpu_torch.ops.kernels import floor, gru
+    from koala_tpu_torch.profiling import time_ms
+
+    mix = pcm[0, :SINGLE_N]
+    k = kt.create(ACCESS_KEY, device="gpu")
+    k.enhance(mix[:8 * 256])                 # warm-up (lazy set-up)
+    k.reset()
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainCalls() as plain, Recorder(mask_gru_model, "floor_scan") as rec_floor, \
+            Recorder(mask_gru_model, "gru_stack") as rec_gru:
+        s = time.perf_counter()
+        out = k.enhance(mix)
+        first_ms = (time.perf_counter() - s) * 1e3
+    single_counts = counts()
+    cpu = kt.create(ACCESS_KEY, device="cpu")
+    want = cpu.enhance(mix)
+    cpu.delete()
+    db = snr_db(want.astype(np.float64), out.astype(np.float64)) if out.shape == want.shape \
+        else float("-inf")
+    hops = -(-(SINGLE_N + 256) // 256)
+    print("path Koala.enhance (one stream): %d samples, %d hops, launches %s, plain-version "
+          "calls %d, %.3f ms (first call); card vs CPU %.2f dB"
+          % (SINGLE_N, hops, single_counts, plain.calls, first_ms, db))
+    if (single_counts["floor_scan"], single_counts["gru_stack"], single_counts["engine_fused"],
+            plain.calls) != (1, 1, 0, 0):
+        fail("one stream's enhance should launch the floor and GRU kernels once each and "
+             "run no plain version: %s, %d plain calls" % (single_counts, plain.calls))
+    if out.shape != mix.shape or db < CHUNK_SNR_DB or np.all(out == 0):
+        fail("one stream's enhance on the card: shape %s, %.1f dB from the CPU"
+             % (out.shape, db))
+
+    def median_ms(reps):
+        runs = []
+        for _ in range(reps):
+            k.reset()
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            k.enhance(mix)
+            runs.append((time.perf_counter() - s) * 1e3)
+        return statistics.median(runs), min(runs)
+
+    kernel_ms = median_ms(5)
+    kernels_engine = k._engine
+    k._engine = Engine(kernels_engine.kind, dict(kernels_engine.config, use_pallas=False))
+    scan_ms = median_ms(3)
+    k._engine = kernels_engine
+    k.delete()
+    print("Koala.enhance (one stream, %.1f s): median %.3f ms, least %.3f of 5 further calls "
+          "(real-time factor %.5f); the scan branch on the same input median %.3f ms, least "
+          "%.3f of 3 on %s" % (SINGLE_N / 16000.0, kernel_ms[0], kernel_ms[1],
+                               kernel_ms[0] / 1e3 / (SINGLE_N / 16000.0), scan_ms[0],
+                               scan_ms[1], card))
+
+    # both kernels against their plain versions on this path's inputs (B = 1)
+    held = hold_recurrences("Koala.enhance (one stream)", rec_floor, rec_gru)
+    f0, lb, rise = rec_floor.args
+    h0, xg, wx, bx, wh, bh = rec_gru.args
+    floor_path = {"launches": single_counts["floor_scan"], "shape": held["floor_shape"],
+                  "max_abs_err": 0.0,
+                  "queued_ms": time_ms(lambda: floor.floor_scan(f0, lb, rise), 200, 5,
+                                       queued=True)}
+    gru_path = {"launches": single_counts["gru_stack"], "shape": held["gru_shape"],
+                "max_abs_err": held["gru_max_abs_err"], "y_snr_db": held["gru_snr_db"],
+                "ms": time_ms(lambda: gru.gru_stack(h0, xg, wx, bx, wh, bh), 10)}
+    print("one stream's kernels: floor lb %s queued %.5f ms; GRU x %s %.4f ms on %s"
+          % (floor_path["shape"], floor_path["queued_ms"], list(xg.shape), gru_path["ms"], card))
+    return single_counts, floor_path, gru_path
+
+
+def bench_sweep_phase(dev, card, reset_counts, counts):
+    """Phase 8b: ``scripts/bench_sweep_torch.py``'s sections 1 and 1b in
+    this process at B = 512 x 376, a few timed calls each. Prints the record
+    on a line of its own. The floor and GRU kernels are held against their
+    plain versions on the inputs that its unfused ``sequence`` gave them.
+    Returns the launches and what the check showed."""
+    from koala_tpu_torch.models import mask_gru as mask_gru_model
+    from koala_tpu_torch.ops.kernels import engine_fused
+
+    sweep = load_script("bench_sweep_torch")
+    engine, params = sweep.load_engine(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    record = dict(sweep.card_keys(dev), batch=BENCH_B, frames=T, iters=SWEEP_ITERS)
+    with Recorder(mask_gru_model, "floor_scan") as rec_floor, \
+            Recorder(mask_gru_model, "gru_stack") as rec_gru:
+        record.update(sweep.component_split(engine, params, dev, BENCH_B, T, SWEEP_ITERS))
+    record["components"] = sweep.components(engine, params, dev, BENCH_B, T, SWEEP_ITERS)
+    torch.cuda.synchronize()
+    sweep_counts = counts()
+    print(json.dumps({"bench_sweep": record}), flush=True)
+    print("path bench_sweep_torch sections 1 and 1b: B=%d x T=%d, sequence %.3f ms, "
+          "sequence_fast %.3f ms (%d segments; stages %s), GRU kernel %.4f ms (%.4f of its "
+          "bound), launches %s on %s"
+          % (BENCH_B, T, record["sequence_ms"], record["full_sequence_ms"],
+             record["fused_segments"], record["fused_stage_ms"], record["kernel_ms"],
+             record["kernel_roofline"]["tensor_fraction"], sweep_counts, card))
+    if min(sweep_counts["floor_scan"], sweep_counts["gru_stack"],
+           sweep_counts["engine_fused"]) < 1:
+        fail("bench_sweep did not launch the floor, GRU and fused kernels: %s" % sweep_counts)
+    if record["fused_segments"] * len(engine_fused.STAGES) != BENCH_FUSED_LAUNCHES \
+            or not all(np.isfinite(v) for v in record["fused_stage_ms"].values()):
+        fail("bench_sweep's fused entry: %d segments, stages %s"
+             % (record["fused_segments"], record["fused_stage_ms"]))
+    return sweep_counts, hold_recurrences("bench_sweep sequence", rec_floor, rec_gru)
+
+
+def pod_wash_phase(card, reset_counts, counts):
+    """Phase 8c: ``scripts/pod_wash_torch.py`` on the card's one-device mesh
+    (4 batches of 64 utterances of 6.0 s, one of them the warm-up). Its
+    records are printed as lines of their own. Each batch runs its whole
+    segments through the fused entry and the hops after them through the
+    floor and GRU kernels, which are held against their plain versions on
+    the inputs of the first such tail. Returns the launches and what the
+    check showed."""
+    from koala_tpu_torch.models import mask_gru as mask_gru_model
+
+    wash = load_script("pod_wash_torch")
+    torch.cuda.synchronize()
+    reset_counts()
+    with Recorder(mask_gru_model, "floor_scan") as rec_floor, \
+            Recorder(mask_gru_model, "gru_stack") as rec_gru:
+        records = wash.main(POD_WASH_ARGS)
+    torch.cuda.synchronize()
+    wash_counts = counts()
+    report = records[0]
+    print("path pod_wash_torch: mesh of %d card, %d batches counted, %.1f audio-s/s, "
+          "launches %s on %s" % (report["chips"], report["batches"],
+                                 report["audio_seconds_per_second"], wash_counts, card))
+    if report["chips"] != 1 or report["batches"] != 3 or wash_counts["engine_fused"] != 4 \
+            or not report["audio_seconds_per_second"] > 0:
+        fail("pod_wash on the card: %s, launches %s" % (report, wash_counts))
+    return wash_counts, hold_recurrences("pod_wash tail", rec_floor, rec_gru)
+
+
 def serving_phases(dev, card, reset_counts, counts, pcm, out_chunk, out_cpu):
     """Phase 6: the StreamingServer on the card (backlog rounds, live cadence
     with a reset), and one round trip through scripts/serve_tcp_torch.py.
-    Returns the launches of the backlog run."""
+    Returns the launches of the backlog run, and what the floor and GRU
+    kernels showed against their plain versions on its first round's inputs."""
+    from koala_tpu_torch.models import mask_gru as mask_gru_model
     from koala_tpu_torch.serve import StreamingServer
 
     rows = np.ascontiguousarray(pcm[:, :T * 256].reshape(B, T, 256))
@@ -828,10 +1000,12 @@ def serving_phases(dev, card, reset_counts, counts, pcm, out_chunk, out_cpu):
     srv = server()
     torch.cuda.synchronize()
     reset_counts()
-    s = time.perf_counter()
-    accepted = srv.push_block(rows, np.full(B, T, np.int32))
-    got = pull_all(srv, B, T)
-    wall = time.perf_counter() - s
+    with Recorder(mask_gru_model, "floor_scan") as rec_floor, \
+            Recorder(mask_gru_model, "gru_stack") as rec_gru:
+        s = time.perf_counter()
+        accepted = srv.push_block(rows, np.full(B, T, np.int32))
+        got = pull_all(srv, B, T)
+        wall = time.perf_counter() - s
     backlog_counts = counts()
     stats = srv.stats
     srv.close()
@@ -983,7 +1157,7 @@ def serving_phases(dev, card, reset_counts, counts, pcm, out_chunk, out_cpu):
           % (n, tcp_s, d_tcp, card))
     if d_tcp > 2:
         fail("the TCP reply is %d LSB from the backlog run" % d_tcp)
-    return backlog_counts
+    return backlog_counts, hold_recurrences("server backlog", rec_floor, rec_gru)
 
 
 def parallel_phases(dev, card, reset_counts, counts, pcm):
@@ -1081,14 +1255,21 @@ def parallel_phases(dev, card, reset_counts, counts, pcm):
 
 def bench_phase(dev, card, reset_counts, counts):
     """Phase 8: bench_torch.py's phases in this process at the full batch.
-    Prints bench.py's record on a line of its own; returns the launches, and
-    the fused entry's time and bound at the bench's shape."""
+    Prints bench.py's record on a line of its own; returns the launches, the
+    fused entry's time and bound at the bench's shape, and what the floor and
+    GRU kernels showed against their plain versions on the inputs of their
+    first call (a serving round)."""
     import bench_torch
+    from koala_tpu_torch.models import mask_gru as mask_gru_model
     from koala_tpu_torch.ops.kernels import engine_fused
+    from koala_tpu_torch.profiling import time_ms
 
     torch.cuda.synchronize()
     reset_counts()
-    record = bench_torch.run(dev, batch=BENCH_B, frames=T, iters=BENCH_ITERS, **BENCH_SERVE)
+    with Recorder(mask_gru_model, "floor_scan") as rec_floor, \
+            Recorder(mask_gru_model, "gru_stack") as rec_gru:
+        record = bench_torch.run(dev, batch=BENCH_B, frames=T, iters=BENCH_ITERS,
+                                 **BENCH_SERVE)
     torch.cuda.synchronize()
     bench_counts = counts()
     print(json.dumps(record), flush=True)
@@ -1118,14 +1299,14 @@ def bench_phase(dev, card, reset_counts, counts):
     state = engine.init_state((BENCH_B,), dev)
     with torch.inference_mode():
         ms = time_ms(lambda: engine_fused.fused_sequence(params, state, hops, engine.config), 5)
-    bound = fused_bound(engine_fused, params, engine.config, BENCH_B, T)
+    bound = engine_fused.bound(params, engine.config, BENCH_B, T)
     at_bench = {"bench_shape": [BENCH_B, T, 256], "bench_ms": ms,
                 "bench_bound_ms": max(bound.values()), "bench_bound_by": max(bound, key=bound.get),
                 "bench_device_launches_per_call": per_call}
     print("fused at the bench's shape [%d, %d, 256]: %.4f ms a call, bound_ms %.4f (%s), %g "
           "device launches a call on %s" % (BENCH_B, T, ms, at_bench["bench_bound_ms"],
                                             at_bench["bench_bound_by"], per_call, card))
-    return bench_counts, at_bench
+    return bench_counts, at_bench, hold_recurrences("bench", rec_floor, rec_gru)
 
 
 class WarningCount(logging.Handler):
@@ -1287,6 +1468,7 @@ def main() -> None:
     from koala_tpu_torch.models import identity as identity_model
     from koala_tpu_torch.models import mask_gru as mask_gru_model
     from koala_tpu_torch.ops.kernels import _build, engine_fused, floor, gru
+    from koala_tpu_torch.profiling import time_ms
 
     # True float32 for every float32 product (plain versions, STFT): no TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1349,6 +1531,12 @@ def main() -> None:
                           out_proc[:40]):
         fail("a new Koala differs from the first one")
     fresh.delete()
+
+    # Koala.enhance, one stream: floor + GRU kernels at a batch of one
+    s = time.perf_counter()
+    single_counts, floor_single, gru_single = single_stream_phase(kt, dev, card, reset_counts,
+                                                                  counts, pcm)
+    single_s = time.perf_counter() - s
 
     # KoalaBatch.process_chunk: floor + GRU kernels
     kb.process_chunk(pcm[:, :8 * 256])       # warm-up (lazy set-up)
@@ -1444,9 +1632,7 @@ def main() -> None:
     if not (torch.equal(kf, rf) and torch.equal(kfl, rfl)):
         fail("floor kernel differs from its plain version")
     t_len, b, nb = lb.shape
-    fl_bytes = (2 * t_len * b * nb + 2 * b * nb) * 4
-    fl_ops = 2 * t_len * b * nb
-    fl_bound = {"bytes": fl_bytes / HBM_BYTES_PER_S * 1e3, "operations": fl_ops / F32_FLOPS * 1e3}
+    fl_bound = floor.bound(t_len, b, nb)
     kernels.append({
         "name": "floor_scan", "route": "cuda", "source": "koala_tpu_torch/csrc/floor.cu",
         "replaces": "koala_tpu/ops/pallas/floor.py:43", "launches": launches["floor_scan"],
@@ -1478,7 +1664,7 @@ def main() -> None:
         fail("GRU kernel outside its tolerance against its plain version")
     t_len, b, h = xg.shape
     L = h0.shape[0]
-    g_bound = gru_bound(t_len, b, h, L, hidden_out=False)
+    g_bound = gru.bound(t_len, b, h, L, hidden_out=False)
     library_gru = cudnn_gru_yardstick(xg, h0, training=False)
     with torch.inference_mode():
         lib_ms = time_ms(library_gru, 10)
@@ -1532,7 +1718,7 @@ def main() -> None:
                             sum(stages.values()), fused_device_launches, card))
     b, t_len, _ = hops.shape
     h, L = cfg["hidden"], cfg["num_layers"]
-    f_bound = fused_bound(engine_fused, params, cfg, b, t_len)
+    f_bound = engine_fused.bound(params, cfg, b, t_len)
     kernels.append({
         "name": "engine_fused", "route": "cuda",
         "source": "koala_tpu_torch/csrc/engine_fused.cu",
@@ -1554,6 +1740,9 @@ def main() -> None:
     # process_chunk's shape, the training path's stand beside them
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], floor_train["max_abs_err"])
     kernels[0]["train_path"] = floor_train
+    # and one stream's Koala.enhance, at a batch of one, the floor and GRU kernels
+    kernels[0]["single_stream"], kernels[1]["single_stream"] = floor_single, gru_single
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], gru_single["max_abs_err"])
 
     # ---- 5. end-to-end numbers of this run
     audio_s = B * n_enh / 16000.0
@@ -1590,7 +1779,8 @@ def main() -> None:
     print("process: per-frame p50 %.3f ms, p90 %.3f ms over %d frames on %s"
           % (np.percentile(lat_ms, 50), np.percentile(lat_ms, 90), len(lat_ms), card))
     # ---- 6. the serving plane: StreamingServer backlog and live rounds, TCP front
-    backlog_counts = serving_phases(dev, card, reset_counts, counts, pcm, out_chunk, out_cpu)
+    backlog_counts, backlog_held = serving_phases(dev, card, reset_counts, counts, pcm,
+                                                  out_chunk, out_cpu)
 
     # ---- 7. the parallel layer: CorpusRunner and the data-parallel train step
     corpus_counts, dp_counts = parallel_phases(dev, card, reset_counts, counts, pcm)
@@ -1598,9 +1788,30 @@ def main() -> None:
     # ---- 8. bench_torch.py at its full batch
     phase_s = {}
     s = time.perf_counter()
-    bench_counts, fused_at_bench = bench_phase(dev, card, reset_counts, counts)
+    bench_counts, fused_at_bench, bench_held = bench_phase(dev, card, reset_counts, counts)
     next(kr for kr in kernels if kr["name"] == "engine_fused").update(fused_at_bench)
     phase_s["bench"] = time.perf_counter() - s
+
+    # ---- 8b. bench_sweep_torch.py's component split, and pod_wash_torch.py
+    s = time.perf_counter()
+    sweep_counts, sweep_held = bench_sweep_phase(dev, card, reset_counts, counts)
+    phase_s["bench_sweep"] = time.perf_counter() - s
+    s = time.perf_counter()
+    wash_counts, wash_held = pod_wash_phase(card, reset_counts, counts)
+    phase_s["pod_wash"] = time.perf_counter() - s
+    # the floor and GRU rows: the shapes at which each path's inputs were held
+    # against the plain versions, and the GRU's largest error over them
+    held = {"server_backlog": backlog_held, "bench": bench_held, "bench_sweep": sweep_held,
+            "pod_wash": wash_held}
+    for held_at in held.values():
+        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], held_at["gru_max_abs_err"])
+    kernels[0]["held_on"] = dict({"process_chunk": kernels[0]["shape"],
+                                  "Koala.enhance": floor_single["shape"],
+                                  "train_on_device": floor_train["shape"]},
+                                 **{p: h["floor_shape"] for p, h in held.items()})
+    kernels[1]["held_on"] = dict({"process_chunk": kernels[1]["shape"],
+                                  "Koala.enhance": gru_single["shape"]},
+                                 **{p: h["gru_shape"] for p, h in held.items()})
 
     # ---- 9. the GRU kernel's gate: models with a launch plan, and one without
     s = time.perf_counter()
@@ -1615,14 +1826,20 @@ def main() -> None:
     # every kernel's launches, by the path that made them
     by_path = {
         "floor_scan": {"process_chunk": launches["floor_scan"],
+                       "Koala.enhance": single_counts["floor_scan"],
                        "train_on_device": floor_train["launches"],
                        "server_backlog": backlog_counts["floor_scan"],
                        "data_parallel_step": dp_counts["floor_scan"],
                        "bench": bench_counts["floor_scan"],
+                       "bench_sweep": sweep_counts["floor_scan"],
+                       "pod_wash": wash_counts["floor_scan"],
                        "gate_phase": gate_counts["floor_scan"]},
         "gru_stack": {"process_chunk": launches["gru_stack"],
+                      "Koala.enhance": single_counts["gru_stack"],
                       "server_backlog": backlog_counts["gru_stack"],
                       "bench": bench_counts["gru_stack"],
+                      "bench_sweep": sweep_counts["gru_stack"],
+                      "pod_wash": wash_counts["gru_stack"],
                       "gate_phase": gate_counts["gru_stack"]},
         "gru_stack_hs": {"train_on_device": hs_entry["launches"],
                          "data_parallel_step": dp_counts["gru_stack_hs"],
@@ -1630,6 +1847,8 @@ def main() -> None:
         "engine_fused": {"enhance": launches["engine_fused"],
                          "corpus_runner": corpus_counts["engine_fused"],
                          "bench": bench_counts["engine_fused"],
+                         "bench_sweep": sweep_counts["engine_fused"],
+                         "pod_wash": wash_counts["engine_fused"],
                          "gate_phase": gate_counts["engine_fused"]},
     }
     for kr in kernels:
@@ -1654,9 +1873,10 @@ def main() -> None:
              floor_train["plain_ms"], floor_train["max_abs_err"], floor_train["launches"], card))
     k.delete()
     kb.delete()
-    print("chip_smoke: %.1f s from the build on, of which bench %.1f s, gate %.1f s, demo "
-          "%.1f s" % (time.perf_counter() - t0, phase_s["bench"], phase_s["gate"],
-                      phase_s["demo"]))
+    print("chip_smoke: %.1f s from the build on, of which one stream's enhance %.1f s, bench "
+          "%.1f s, bench_sweep %.1f s, pod_wash %.1f s, gate %.1f s, demo %.1f s"
+          % (time.perf_counter() - t0, single_s, phase_s["bench"], phase_s["bench_sweep"],
+             phase_s["pod_wash"], phase_s["gate"], phase_s["demo"]))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -26,6 +26,12 @@ class Identity(nn.Module):
                                   requires_grad=False)
 
 
+def init_params(key=None, config: Dict[str, Any] = None) -> Identity:
+    """The identity model's parameters (its one placeholder); ``key`` and
+    ``config`` are taken for the JAX package's signature and not used."""
+    return Identity()
+
+
 def init_state(batch_shape: Tuple[int, ...], config: Dict[str, Any], device):
     return torch.zeros(tuple(batch_shape) + (1,), device=torch.device(device))
 
@@ -38,4 +44,4 @@ def apply_sequence(params, state, re, im, config: Dict[str, Any] = None):
     return state, torch.ones_like(re)
 
 
-__all__ = ["DEFAULT_CONFIG", "Identity", "init_state", "step", "apply_sequence"]
+__all__ = ["DEFAULT_CONFIG", "Identity", "init_params", "init_state", "step", "apply_sequence"]

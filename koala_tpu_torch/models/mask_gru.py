@@ -22,7 +22,10 @@ kernel branch (on the CPU through the kernels' plain versions), ``False``
 the scan. Within the kernel branch the GRU stack takes its kernel wherever
 ``plan_launch`` has a launch plan for the shape (on an H100, every stack that
 the JAX package's kernel takes, and more); elsewhere it runs the scan, with
-one warning, as the JAX package does where its kernel does not fit.
+one warning, as the JAX package does where its kernel does not fit. The
+kernels take one batch axis: on the kernel branch an unbatched input (one
+stream's ``Koala.enhance``) gets a batch of one, and a batch of several axes
+is flattened to one, for the recurrences only.
 
 Training: parameters are created frozen (inference never builds a graph);
 a trainer calls ``requires_grad_(True)`` on the module. Under grad mode the
@@ -386,12 +389,18 @@ def gru_kernel_fits(batch: int, hidden: int, layers: int, sms: int) -> bool:
     return True
 
 
+def _rows(x) -> int:
+    """Rows of the one batch axis that the kernels see for x [*, T, C]: the
+    product of the batch axes, 1 for an unbatched input."""
+    return int(np.prod(x.shape[:-2], dtype=np.int64))
+
+
 def _gru_kernel_enabled(cfg, x) -> bool:
     """The kernel branch's GRU gate, as the JAX package's ``_pallas_enabled``:
     where the kernel cannot take the shape, warn once and run the scan
     branch. On the CPU (the kernels' plain versions) it asks the plan of an
     H100, so that the CPU takes the branch the card would take."""
-    if not _kernel_branch(cfg, x) or x.dim() != 3:
+    if not _kernel_branch(cfg, x):
         return False
     if cfg.get("compute_dtype") != "bfloat16":
         return _warn_fallback("compute_dtype != bfloat16", cfg)
@@ -401,7 +410,7 @@ def _gru_kernel_enabled(cfg, x) -> bool:
            if x.device.type == "cuda" else H100_SMS)
     # the plan depends on the batch only through how rows are laid out, so
     # one warning stands for every batch of this width and depth
-    if not gru_kernel_fits(x.shape[0], cfg["hidden"], cfg["num_layers"], sms):
+    if not gru_kernel_fits(_rows(x), cfg["hidden"], cfg["num_layers"], sms):
         return _warn_fallback("no GRU kernel launch plan", cfg)
     return True
 
@@ -443,10 +452,14 @@ def apply_sequence(params: MaskGRU, state, re, im, config: Dict[str, Any] = None
         lb = band_log_energy(re, im, cfg)                       # [*, T, nb]
         t_ax = lb.dim() - 2
         lb_t = lb.movedim(t_ax, 0)                              # [T, *, nb]
-        if _kernel_branch(cfg, lb_t) and lb_t.dim() == 3:
+        if _kernel_branch(cfg, lb_t):
             scan = floor_scan_trainable if params.training_graph() else floor_scan
             floor_final, floors = scan(
-                state["floor"].contiguous(), lb_t.contiguous(), float(cfg["floor_rise"]))
+                state["floor"].reshape(-1, nb).contiguous(),     # [B, nb]
+                lb_t.reshape(lb_t.shape[0], -1, nb).contiguous(),  # [T, B, nb]
+                float(cfg["floor_rise"]))
+            floor_final = floor_final.reshape(state["floor"].shape)
+            floors = floors.reshape(lb_t.shape)
         else:
             floor_final, floors = floor_scan_ref(state["floor"], lb_t, cfg["floor_rise"])
         snr = _feat(_snr_features(lb_t, floors, cfg), cfg)
@@ -459,12 +472,13 @@ def apply_sequence(params: MaskGRU, state, re, im, config: Dict[str, Any] = None
     if _gru_kernel_enabled(cfg, x):
         wx, bx, wh, bh = params.gru_stacked()
         stack = gru_stack_trainable if params.training_graph() else gru_stack
+        lead = x.shape[:-2]
         y, h_final = stack(
-            state.movedim(1, 0).contiguous(),                   # [L, B, H]
-            x.movedim(1, 0).bfloat16().contiguous(),            # [T, B, H]
+            state.reshape((-1,) + state.shape[-2:]).movedim(1, 0).contiguous(),  # [L, B, H]
+            x.reshape((-1,) + x.shape[-2:]).movedim(1, 0).bfloat16().contiguous(),  # [T, B, H]
             wx, bx, wh, bh)
-        x = y.movedim(0, 1)                                     # [B, T, H]
-        state = h_final.movedim(0, 1)                           # [B, L, H]
+        x = y.movedim(0, 1).reshape(lead + x.shape[-2:])        # [*, T, H]
+        state = h_final.movedim(0, 1).reshape(lead + state.shape[-2:])   # [*, L, H]
         if nb:
             state = {"h": state, "floor": floor_final}
         return state, _mask_head(params, x, cfg)

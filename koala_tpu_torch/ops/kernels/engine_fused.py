@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ... import profiling
 from ...constants import FFT_SIZE, FRAME_LENGTH, NUM_BINS
 from ...models.mask_gru import _band_matrix_np, _cep_matrix_np
 from ..stft import _windowed_bases
@@ -184,6 +185,31 @@ def prepare(params, cfg) -> Dict[str, Any]:
                 "wx": wx, "bx": bx, "wh": wh, "bh": bh, "bounds": bounds,
                 "layout": lay}
     return params.derived("fused:" + _cfg_key(cfg), build)
+
+
+def bound(params, cfg, b: int, t_len: int):
+    """Least time (ms) of the fused engine over hops [b, t_len, 256] on an
+    H100 (``profiling.bound``): by bytes (hops in, out, the state both ways,
+    the weights once) and by operations (bf16 products on the tensor cores,
+    the f32 elementwise work beside them), at the function's real widths,
+    not the kernel's padded ones: 257 bins (514 re|im DFT columns), nb
+    bands, 161 cepstral lags, the encoder's bins + 2 nb + cep inputs, 257
+    mask columns + the gate."""
+    ops = prepare(params, cfg)
+    lay = ops["layout"]
+    h, L = lay.hidden, lay.layers
+    w_bytes = sum(ops[n].numel() * ops[n].element_size() for n in (
+        "fwd", "inv", "band", "cepb", "wenc", "benc", "wcep", "wdec", "bdec",
+        "wx", "bx", "wh", "bh"))
+    s_bytes = b * (256 * 4 + 2 * 256 * 4 + 2 * lay.nb * 4 + 2 * L * h * 4)
+    f_bytes = 2 * b * t_len * 256 * 4 + s_bytes + w_bytes
+    bins = cfg["bins"]
+    enc_in = bins + 2 * lay.nb + lay.cep
+    per_row_mm = 2 * (512 * 2 * bins + bins * lay.nb + (bins * 161 if lay.cep else 0) + enc_in * h
+                      + L * 2 * h * 3 * h + h * (bins + 1) + 2 * bins * 512)
+    per_row_ew = bins * 12 + lay.nb * 12 + lay.cep * (161 + h * 2) + h * 12 \
+        + L * h * 20 + bins * 10 + 256 * 2
+    return profiling.bound(f_bytes, b * t_len * per_row_mm, b * t_len * per_row_ew)
 
 
 def _scalars(cfg):
@@ -379,4 +405,4 @@ def fused_sequence(params, state, hops, cfg, stage_ms=None):
 
 __all__ = ["fused_sequence", "fused_sequence_ref", "fused_sequence_supported",
            "prepare", "Layout", "T_BLOCK", "frame_bytes", "segment_hops", "WORKSPACE_BYTES",
-           "STAGES"]
+           "STAGES", "bound"]

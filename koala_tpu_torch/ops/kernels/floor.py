@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import profiling
 from . import _build
 
 # launches of the CUDA kernel since the last reset (a plain integer)
@@ -64,6 +65,13 @@ def floor_scan(floor0: torch.Tensor, lb: torch.Tensor, rise: float):
     launches += 1
     _build.check(status, "koala_floor_scan")
     return floor_final, floors
+
+
+def bound(t_len: int, b: int, nb: int):
+    """Least time (ms) of the floor tracker over lb [t_len, b, nb] f32 on an
+    H100 (``profiling.bound``): lb read and the floors written once, the
+    state both ways; an add and a min an element."""
+    return profiling.bound((2 * t_len * b * nb + 2 * b * nb) * 4, 0, 2 * t_len * b * nb)
 
 
 def empty_launch(device) -> None:
@@ -116,4 +124,4 @@ def floor_scan_trainable(floor0: torch.Tensor, lb: torch.Tensor, rise: float):
 
 
 __all__ = ["floor_scan", "floor_scan_ref", "floor_scan_trainable", "floor_scan_backward",
-           "empty_launch"]
+           "empty_launch", "bound"]

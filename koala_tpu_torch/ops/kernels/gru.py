@@ -47,6 +47,7 @@ import functools
 
 import torch
 
+from ... import profiling
 from . import _build
 
 # launches of the CUDA kernel since the last reset (plain integers): the
@@ -317,6 +318,19 @@ def gru_stack(h0, x, wx, bx, wh, bh, return_hidden: bool = False):
     return (y, hs, h_final) if return_hidden else (y, h_final)
 
 
+def bound(t_len: int, b: int, h: int, layers: int, hidden_out: bool):
+    """Least time (ms) of the GRU stack on an H100 (``profiling.bound``): x
+    and y bf16, h in and out f32, the weights once, and with ``hidden_out``
+    the streamed states hs [T, L, B, H] f32; bf16 products on the tensor
+    cores beside the f32 gate math."""
+    n_bytes = (2 * t_len * b * h * 2 + 2 * layers * b * h * 4
+               + 2 * layers * h * 3 * h * 2 + 2 * layers * 3 * h * 4
+               + (t_len * layers * b * h * 4 if hidden_out else 0))
+    mm = t_len * layers * 2 * (2 * b * h * 3 * h)
+    ew = t_len * layers * b * h * 16 + t_len * layers * b * 3 * h * 2
+    return profiling.bound(n_bytes, mm, ew)
+
+
 def grid_barriers(plan: GruPlan, count: int, device) -> None:
     """Launch ``count`` grid barriers and nothing else on the grid of
     ``plan``: the chain of barriers that a ``gru_stack`` launch cannot go
@@ -424,4 +438,4 @@ def gru_stack_trainable(h0, x, wx, bx, wh, bh):
 
 
 __all__ = ["gru_stack", "gru_stack_ref", "gru_stack_trainable", "gru_stack_backward",
-           "layers_step", "GruPlan", "plan_launch", "plan_for", "grid_barriers"]
+           "layers_step", "GruPlan", "plan_launch", "plan_for", "grid_barriers", "bound"]

@@ -90,6 +90,13 @@ def _bases_on(fft_size: int, windowed: bool, device: torch.device):
                      for a in arrays)
 
 
+def dft_matrices(fft_size: int = FFT_SIZE, device="cpu"):
+    """(fwd_re [N, K], fwd_im [N, K], inv_re [K, N], inv_im [K, N]) float32
+    on ``device``: the unwindowed bases, as the JAX package's
+    ``dft_matrices``."""
+    return tuple(torch.tensor(a, device=torch.device(device)) for a in _numpy_basis(fft_size))
+
+
 def analysis_window(fft_size: int = FFT_SIZE, device="cpu") -> torch.Tensor:
     """sqrt-Hann window used for both analysis and synthesis."""
     return torch.as_tensor(_numpy_window(fft_size), device=torch.device(device))
@@ -135,5 +142,5 @@ def overlap_add(frames: torch.Tensor, hop: int = FRAME_LENGTH) -> torch.Tensor:
     return (head + prev_tail).reshape(frames.shape[:-2] + (-1,))
 
 
-__all__ = ["analysis_window", "stft_frame", "istft_frame", "frame_signal",
+__all__ = ["analysis_window", "dft_matrices", "stft_frame", "istft_frame", "frame_signal",
            "overlap_add"]

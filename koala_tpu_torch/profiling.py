@@ -8,6 +8,12 @@ The same surface as the JAX package's ``profiling.py``:
   a Chrome trace (``chrome://tracing``, Perfetto) into a directory.
 - ``ThroughputMeter``: audio-seconds per second for serving loops.
 - ``machine_state``: a host telemetry snapshot (load, memory, CPU count).
+
+and, for the port's measurements (``chip_smoke.py``, ``scripts/``):
+``time_ms`` (CUDA events, eager or queued behind a spin kernel),
+``wall_ms`` (the host's clock), and ``bound``: the least time of some work
+on an H100 SXM, by bytes and by operations, from the card's published
+peaks (``HBM_BYTES_PER_S``, ``BF16_TENSOR_FLOPS``, ``F32_FLOPS``).
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ def log_disable() -> None:
 
 
 @contextlib.contextmanager
-def trace(log_dir: Optional[str] = None):
+def trace(log_dir: Optional[str] = None, record_shapes: bool = False):
     """Profile a code region and write ``<log_dir>/trace.json``::
 
         with profiling.trace("traces"):
@@ -55,15 +61,69 @@ def trace(log_dir: Optional[str] = None):
 
     CPU activity is always recorded; CUDA activity (the card's kernels and
     copies) when a card is present. ``log_dir`` defaults to a directory under
-    the temporary directory. Yields ``log_dir``."""
+    the temporary directory. ``record_shapes`` keeps each operator's input
+    shapes and types in the trace. Yields ``log_dir``."""
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "koala_tpu_torch_trace")
     os.makedirs(log_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities, record_shapes=record_shapes) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+# Published peaks of one H100 SXM (NVIDIA data sheet; dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+
+def bound(n_bytes: float, bf16_ops: float, f32_ops: float) -> Dict[str, float]:
+    """Least time (ms) of some work on the card, {"bytes": ms, "operations":
+    ms}: the bytes over the memory rate, and the slower of the bf16 products
+    on the tensor cores and the f32 work on the CUDA cores (the two run side
+    by side). The bound is the larger. Each kernel module counts its own
+    work (``floor.bound``, ``gru.bound``, ``engine_fused.bound``)."""
+    return {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "operations": max(bf16_ops / BF16_TENSOR_FLOPS, f32_ops / F32_FLOPS) * 1e3}
+
+
+def time_ms(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
+    """Mean milliseconds of ``fn`` on the card (CUDA events, after warm-up).
+    ``queued``: the calls are made while the card is busy with a spin kernel
+    of about 20 ms, so they wait in the stream and run back to back. That is
+    the card's time for a kernel of a few microseconds, which the host cannot
+    launch as fast as the card runs it: without it the events time the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int, warmup: int = 1, device: Optional[torch.device] = None) -> float:
+    """Mean milliseconds of ``fn`` by the host's clock, after warm-up. With a
+    CUDA ``device`` the card is synchronised before the clock starts and
+    after the last call, so its queued work is inside the time."""
+    sync = device is not None and device.type == "cuda"
+    for _ in range(warmup):
+        fn()
+    if sync:
+        torch.cuda.synchronize(device)
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    if sync:
+        torch.cuda.synchronize(device)
+    return (time.perf_counter() - start) / reps * 1e3
 
 
 class ThroughputMeter:
@@ -118,4 +178,5 @@ def machine_state() -> Dict[str, object]:
 
 
 __all__ = ["log_enable", "log_disable", "trace", "ThroughputMeter",
-           "machine_state", "logger", "TRACE_FILE"]
+           "machine_state", "logger", "TRACE_FILE", "bound", "time_ms", "wall_ms",
+           "HBM_BYTES_PER_S", "BF16_TENSOR_FLOPS", "F32_FLOPS"]

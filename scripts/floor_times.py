@@ -14,9 +14,10 @@ shapes) it prints, in microseconds per call by CUDA events:
   raw     the C entry alone on preallocated outputs, queued the same way.
 
 and, where the package has one, a launch that does nothing, the same three
-ways. ``--package-root`` names the checkout whose ``koala_tpu_torch`` is
-timed (default: the one this script lies in), so two checkouts can be timed
-in turns within one call and on one card. Every result is checked
+ways, all by ``koala_tpu_torch.profiling.time_ms``. ``--package-root``
+names the checkout whose ``koala_tpu_torch`` is timed (default: the one this
+script lies in; it must have ``profiling.time_ms``), so two checkouts can be
+timed in turns within one call and on one card. Every result is checked
 bit-identical to the plain version first.
 """
 
@@ -31,14 +32,8 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, HERE)
-from chip_smoke import time_ms  # noqa: E402  (the one timing loop, eager and queued)
 
 SHAPES = ((376, 64, 32), (63, 64, 32))
-
-
-def per_call_us(fn, reps: int, queued: bool) -> float:
-    return time_ms(fn, reps, warmup=5, queued=queued) * 1e3
 
 
 def main() -> None:
@@ -51,6 +46,10 @@ def main() -> None:
     root = os.path.abspath(args.package_root)
     sys.path.insert(0, root)
     from koala_tpu_torch.ops.kernels import _build, floor
+    from koala_tpu_torch.profiling import time_ms
+
+    def per_call_us(fn, reps: int, queued: bool) -> float:
+        return time_ms(fn, reps, warmup=5, queued=queued) * 1e3
 
     dev = torch.device("cuda", 0)
     lib = _build.library()

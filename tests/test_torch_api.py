@@ -198,3 +198,20 @@ def test_sdk_and_revoked_key(monkeypatch):
 def test_available_devices_lists_cpu():
     devices = koala_tpu_torch.available_devices()
     assert any(d.startswith("cpu:[0-") for d in devices), devices
+
+
+def test_enhance_on_the_cpu_takes_the_scan_branch(mix, monkeypatch):
+    """The CPU's default path does not take the kernel branch: one stream's
+    ``enhance`` runs the floor's plain scan and the GRU step loop, never the
+    kernel wrappers (so its bits, held to koala_tpu above, do not move)."""
+    from koala_tpu_torch.models import mask_gru as tmask
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel wrapper ran on the CPU's default path")
+
+    monkeypatch.setattr(tmask, "floor_scan", refuse)
+    monkeypatch.setattr(tmask, "gru_stack", refuse)
+    t = koala_tpu_torch.create(ACCESS_KEY, device="cpu")
+    out = t.enhance(mix[:20 * FRAME_LENGTH])
+    assert out.shape == (20 * FRAME_LENGTH,)
+    t.delete()

@@ -438,6 +438,35 @@ def test_public_surface_launches_the_kernels(cuda_device):
     assert snr_db(cpu.process_chunk(pcm).astype(np.float64), out.astype(np.float64)) > 35.0
 
 
+@pytest.mark.cuda
+def test_single_stream_enhance_launches_the_kernels(cuda_device, monkeypatch):
+    """One stream's ``Koala.enhance`` on the card launches the floor and GRU
+    kernels once each a call and no plain version, and lands within 35 dB of
+    the port on the CPU."""
+    def refuse(name):
+        def plain(*args, **kwargs):
+            raise AssertionError("%s ran on the card" % name)
+        return plain
+
+    for module, name in ((mask_gru, "floor_scan_ref"), (mask_gru, "_gru_recurrent"),
+                         (floor, "floor_scan_ref"), (gru, "gru_stack_ref")):
+        monkeypatch.setattr(module, name, refuse(name))
+    rng = np.random.default_rng(5)
+    pcm = (rng.standard_normal(3 * 16000) * 3000).astype(np.int16)
+    k = koala_tpu_torch.create(ACCESS_KEY, device="gpu")
+    for _ in range(2):
+        k.reset()
+        counts = (floor.launches, gru.launches, engine_fused.launches)
+        out = k.enhance(pcm)
+        assert (floor.launches - counts[0], gru.launches - counts[1],
+                engine_fused.launches - counts[2]) == (1, 1, 0)
+    monkeypatch.undo()
+    cpu = koala_tpu_torch.create(ACCESS_KEY, device="cpu")
+    want = cpu.enhance(pcm)
+    assert out.shape == want.shape == pcm.shape
+    assert snr_db(want.astype(np.float64), out.astype(np.float64)) > 35.0
+
+
 def _pull_frames(server, streams, frames, timeout=60.0):
     import time
 

@@ -135,3 +135,105 @@ def test_chunk_masked_equals_masked_steps():
         np.testing.assert_array_equal(x, y)
     fresh = to_numpy(engine.init_state((b,), "cpu"))
     np.testing.assert_array_equal(to_numpy(st_c)["ola"][1], fresh["ola"][1])
+
+
+# ---- one stream on the kernel branch: the recurrences get a batch axis
+
+def _bundled_kernel_branch():
+    """The bundled model with the kernel branch forced (on the CPU: the
+    kernels' plain versions, the branch a card takes)."""
+    from koala_tpu_torch.engine.core import Engine
+    from koala_tpu_torch.engine.stream import load_model
+    from koala_tpu_torch.models.params_io import default_model_path
+
+    engine, params = load_model(default_model_path(), "cpu")
+    return Engine(engine.kind, dict(engine.config, use_pallas=True)), params
+
+
+class _Spy:
+    """Counts the calls of ``module.name`` and passes them on."""
+
+    def __init__(self, monkeypatch, module, name):
+        self.calls = 0
+        orig = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            self.calls += 1
+            return orig(*args, **kwargs)
+        monkeypatch.setattr(module, name, wrapped)
+
+
+def _forbid(monkeypatch, module, name):
+    def refuse(*args, **kwargs):
+        raise AssertionError("%s was called on the kernel branch" % name)
+    monkeypatch.setattr(module, name, refuse)
+
+
+def test_unbatched_sequence_reaches_the_kernel_wrappers(monkeypatch):
+    """An unbatched [T, 256] ``sequence`` (one stream's ``Koala.enhance``) on
+    the kernel branch calls the floor and GRU wrappers once each, and never
+    the floor's plain scan or the GRU step loop."""
+    from koala_tpu_torch.models import mask_gru as tmask
+
+    engine, params = _bundled_kernel_branch()
+    floor = _Spy(monkeypatch, tmask, "floor_scan")
+    gru = _Spy(monkeypatch, tmask, "gru_stack")
+    _forbid(monkeypatch, tmask, "floor_scan_ref")
+    _forbid(monkeypatch, tmask, "_gru_recurrent")
+    state, out = engine.sequence(params, engine.init_state((), "cpu"),
+                                 _hops(11, (9, FRAME_LENGTH), 0.05))
+    assert (floor.calls, gru.calls) == (1, 1)
+    assert out.shape == (9, FRAME_LENGTH)
+    assert state["model"]["h"].shape == (2, 384) and state["model"]["floor"].shape == (32,)
+
+
+@pytest.mark.parametrize("t_len", [1, 2, 9, 376])
+def test_unbatched_kernel_branch_equals_batch_of_one(t_len):
+    """Output and state of an unbatched call equal those of the same hops as
+    a batch of one, squeezed, bit for bit."""
+    engine, params = _bundled_kernel_branch()
+    hops = _hops(12 + t_len, (t_len, FRAME_LENGTH), 0.05)
+    state, out = engine.sequence(params, engine.init_state((), "cpu"), hops)
+    state1, out1 = engine.sequence(params, engine.init_state((1,), "cpu"), hops[None])
+    assert torch.equal(out, out1[0])
+    for key in ("input_carry", "ola"):
+        assert torch.equal(state[key], state1[key][0]), key
+    for key in ("h", "floor"):
+        assert torch.equal(state["model"][key], state1["model"][key][0]), key
+
+
+def test_two_batch_axes_on_the_kernel_branch_equal_one():
+    """A batch of two axes [2, 3, T, 256] is flattened to one for the
+    recurrences: the same bits as [6, T, 256], reshaped."""
+    engine, params = _bundled_kernel_branch()
+    hops = _hops(13, (2, 3, 5, FRAME_LENGTH), 0.05)
+    state, out = engine.sequence(params, engine.init_state((2, 3), "cpu"), hops)
+    state6, out6 = engine.sequence(params, engine.init_state((6,), "cpu"),
+                                   hops.reshape(6, 5, FRAME_LENGTH))
+    assert torch.equal(out, out6.reshape(out.shape))
+    for key in ("h", "floor"):
+        assert torch.equal(state["model"][key],
+                           state6["model"][key].reshape(state["model"][key].shape)), key
+
+
+def test_unbatched_model_without_a_plan_takes_the_scan_with_one_warning(monkeypatch, caplog):
+    """Hidden 768 x 3 has no GRU launch plan: an unbatched call on the kernel
+    branch runs the floor wrapper and the GRU step loop, and warns once over
+    two calls."""
+    from koala_tpu_torch.models import mask_gru as tmask
+
+    cfg = dict(tmask.TRAIN_CONFIG, hidden=768, num_layers=3, use_pallas=True)
+    params = tmask.init_params(torch.Generator().manual_seed(5), cfg)
+    engine = make_engine("mask_gru", cfg)
+    monkeypatch.setattr(tmask, "_FALLBACK_WARNED", set())
+    floor = _Spy(monkeypatch, tmask, "floor_scan")
+    gru = _Spy(monkeypatch, tmask, "gru_stack")
+    steps = _Spy(monkeypatch, tmask, "_gru_recurrent")
+    hops = _hops(14, (4, FRAME_LENGTH), 0.05)
+    with caplog.at_level("WARNING", logger="koala_tpu_torch"):
+        for _ in range(2):
+            _, out = engine.sequence(params, engine.init_state((), "cpu"), hops)
+    warned = [r for r in caplog.records if "GRU kernel DISABLED" in r.getMessage()]
+    assert len(warned) == 1
+    assert (floor.calls, gru.calls, steps.calls) == (2, 0, 2 * 4 * 3)
+    assert out.shape == (4, FRAME_LENGTH) and torch.isfinite(out).all()

@@ -251,3 +251,41 @@ def test_bench_and_demos_ask_for_the_card_by_default(script, tmp_path, monkeypat
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(KoalaInvalidArgumentError):
         module.main(args)
+
+
+# the counterparts of the scripts that need JAX, and the two report readers
+# that need no port
+PART_B_SCRIPTS = [os.path.join(ROOT, "scripts", s + ".py") for s in (
+    "bench_sweep_torch", "pod_wash_torch", "scaling_analysis_torch", "soup_search_torch",
+    "promote_model_torch", "gate_summary", "ledger_from_report")]
+
+
+def test_ported_scripts_import_no_jax_optax_or_koala_tpu():
+    """Each script loaded as a module, with the modules that its functions
+    import (the training script's gates and evaluation, the ledger): none of
+    jax, optax and koala_tpu is loaded, and no line of their sources (nor of
+    the pre-ship script) names one."""
+    code = ("import sys, importlib.util\n"
+            "sys.path[:0] = [%r, %r]\n"
+            "for i, path in enumerate(%r):\n"
+            "    spec = importlib.util.spec_from_file_location('s%%d' %% i, path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "import train_model_torch, known_gaps, koala_tpu_torch.parallel\n"
+            "import koala_tpu_torch.train.train, koala_tpu_torch.train.evaluate\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', "
+            "'koala_tpu')]; print(bad); sys.exit(1 if bad else 0)"
+            % (os.path.join(ROOT, "scripts"), os.path.join(ROOT, "tests"), PART_B_SCRIPTS))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    bad = []
+    for path in PART_B_SCRIPTS + [os.path.join(ROOT, "scripts", "preship_check_torch.sh")]:
+        ported = "_torch" in os.path.basename(path)
+        with open(path) as fh:
+            for i, line in enumerate(fh, 1):
+                if (re.search(r"\b(import|from)\s+(jax|optax)\b", line)
+                        or re.search(r"\bkoala_tpu(?!_torch)\b", line)
+                        # a ported script runs the port's bench and trainer only
+                        or (ported and re.search(r"\b(bench|train_model)\.py\b", line))):
+                    bad.append("%s:%d %s" % (path, i, line.strip()))
+    assert not bad, bad

@@ -280,3 +280,21 @@ def test_mmse_serves_through_create_and_create_batch(tmp_path):
     out = tb.process_chunk(pcm)
     assert np.any(out != 0)
     assert np.abs(out.astype(np.int32) - np.asarray(jb.process_chunk(pcm))).max() <= 2
+
+
+def test_identity_init_params_matches_jax():
+    """``identity.init_params`` as koala_tpu's: the one zero placeholder,
+    and an engine on it is a pure delay."""
+    from koala_tpu.models import identity as jidentity
+    from koala_tpu_torch.models import identity as tidentity
+
+    mine = tidentity.init_params(None, tidentity.DEFAULT_CONFIG)
+    theirs = jidentity.init_params(jax.random.PRNGKey(0), jidentity.DEFAULT_CONFIG)
+    assert isinstance(mine, tidentity.Identity)
+    assert {k for k, _ in mine.named_parameters()} == set(theirs)
+    np.testing.assert_array_equal(mine.empty.detach().numpy(), np.asarray(theirs["empty"]))
+    engine = make_engine("identity", tidentity.DEFAULT_CONFIG)
+    hops = torch.randn((3, FRAME_LENGTH), generator=torch.Generator().manual_seed(1)) * 0.1
+    _, out = engine.sequence(mine, engine.init_state((), "cpu"), hops)
+    torch.testing.assert_close(out.reshape(-1)[FRAME_LENGTH:], hops.reshape(-1)[:-FRAME_LENGTH],
+                               atol=1e-6, rtol=0)

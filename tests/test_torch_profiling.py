@@ -3,6 +3,7 @@ analogs of tests/test_profiling.py, and a trace of a CPU sequence call."""
 
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -53,3 +54,39 @@ def test_trace_writes_a_trace_of_a_cpu_sequence_call(tmp_path):
         events = json.load(f)["traceEvents"]
     # the STFT's products ran inside the traced region
     assert any("matmul" in str(e.get("name", "")) for e in events)
+
+
+def test_kernel_bounds_keep_their_values():
+    """The bounds that chip_smoke.py and scripts/bench_sweep_torch.py share
+    (each kernel module's ``bound``, over ``profiling.bound``): the floor
+    kernel at the serving path's lb [376, 64, 32], the GRU stack at x
+    [376, 64, 384] x 2 layers, the fused entry at the bench's hops
+    [512, 376, 256] on the bundled model."""
+    from koala_tpu_torch.engine.stream import load_model
+    from koala_tpu_torch.models.params_io import default_model_path
+    from koala_tpu_torch.ops.kernels import engine_fused, floor, gru
+
+    fl = floor.bound(376, 64, 32)
+    assert max(fl, key=fl.get) == "bytes" and round(fl["bytes"] * 1e3, 2) == 1.84   # us
+    g = gru.bound(376, 64, 384, 2, hidden_out=False)
+    assert max(g, key=g.get) == "operations" and round(g["operations"], 4) == 0.0861
+    hs = gru.bound(63, 64, 384, 2, hidden_out=True)
+    assert round(max(hs.values()), 4) == 0.0144
+    engine, params = load_model(default_model_path(), "cpu")
+    f = engine_fused.bound(params, engine.config, 512, 376)
+    assert max(f, key=f.get) == "operations" and round(f["operations"], 3) == 1.001
+    f64 = engine_fused.bound(params, engine.config, 64, 376)
+    assert round(f64["operations"], 4) == 0.1251
+
+
+def test_wall_ms_counts_the_timed_calls_after_the_warmup():
+    """The host-clock timer that scripts/bench_sweep_torch.py uses off the
+    card: ``warmup`` untimed calls, then the mean of ``reps`` timed ones."""
+    calls = []
+
+    def fn():
+        calls.append(time.perf_counter())
+        time.sleep(0.002)
+
+    ms = profiling.wall_ms(fn, 3, warmup=2, device=torch.device("cpu"))
+    assert len(calls) == 5 and ms >= 2.0

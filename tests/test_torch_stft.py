@@ -58,3 +58,17 @@ def test_perfect_reconstruction_through_unit_mask():
     np.testing.assert_allclose(y[:, FRAME_LENGTH:], x[:, :(t - 1) * FRAME_LENGTH], atol=1e-4)
     w = tstft.analysis_window().numpy()
     np.testing.assert_allclose(w[:FRAME_LENGTH] ** 2 + w[FRAME_LENGTH:] ** 2, 1.0, atol=1e-6)
+
+
+def test_dft_matrices_match_jax():
+    """``dft_matrices`` is exported from ``ops`` as in koala_tpu, with the
+    same four unwindowed bases, bit for bit."""
+    from koala_tpu.ops import dft_matrices as jdft
+    from koala_tpu_torch.ops import dft_matrices
+
+    for fft_size in (FFT_SIZE, 64):
+        mine, theirs = dft_matrices(fft_size), jdft(fft_size)
+        assert len(mine) == len(theirs) == 4
+        for a, b in zip(mine, theirs):
+            assert a.dtype == torch.float32 and a.device.type == "cpu"
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
