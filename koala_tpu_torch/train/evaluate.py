@@ -82,27 +82,42 @@ def evaluate(params, config: Dict[str, Any], speech: np.ndarray, noise: np.ndarr
         params = params_from_numpy(params, dev)
     params = params.to(dev)
 
-    mixed = (speech.astype(np.int32) + noise.astype(np.int32))
-    mixed = np.clip(mixed, -32768, 32767).astype(np.int16)
-
+    mixed = mix_pcm(speech, noise)
     out_speech = _stream_enhance(engine, params, speech, dev)
     out_noise = _stream_enhance(engine, params, noise, dev)
     out_mixed = _stream_enhance(engine, params, mixed, dev)
+    return harness_results(speech, noise, out_speech, out_noise, out_mixed)
 
-    n = len(out_mixed) - DELAY_SAMPLE
+
+def mix_pcm(speech: np.ndarray, noise: np.ndarray) -> np.ndarray:
+    """The harness's third case: the sample-wise int16 sum, saturated."""
+    mixed = speech.astype(np.int32) + noise.astype(np.int32)
+    return np.clip(mixed, -32768, 32767).astype(np.int16)
+
+
+def harness_results(speech: np.ndarray, noise: np.ndarray, out_speech: np.ndarray,
+                    out_noise: np.ndarray, out_mixed: np.ndarray,
+                    delay: int = DELAY_SAMPLE) -> Dict[str, float]:
+    """The harness's metrics of one pair from the three cases' enhanced int16
+    outputs, whatever surface made them. ``delay``: how far each output lags
+    its input; 0 scores a delay-compensated output (``enhance``'s), every
+    frame against its own reference frame and the mix's SI-SDR and STOI over
+    all of ``out_mixed``."""
+    mixed = mix_pcm(speech, noise)
+    n = len(out_mixed) - delay
     results = {
-        "dev_pure_speech": rms_case(out_speech, speech),
-        "dev_pure_noise": rms_case(out_noise, None),
-        "dev_mixed": rms_case(out_mixed, speech),
-        "si_sdr_mixed_db": si_sdr(out_mixed[DELAY_SAMPLE:], speech[:n]),
+        "dev_pure_speech": rms_case(out_speech, speech, delay),
+        "dev_pure_noise": rms_case(out_noise, None, delay),
+        "dev_mixed": rms_case(out_mixed, speech, delay),
+        "si_sdr_mixed_db": si_sdr(out_mixed[delay:], speech[:n]),
         "si_sdr_input_db": si_sdr(mixed[:n], speech[:n]),
-        "stoi_mixed": stoi(speech[:n], out_mixed[DELAY_SAMPLE:]),
+        "stoi_mixed": stoi(speech[:n], out_mixed[delay:]),
         "stoi_input": stoi(speech[:n], mixed[:n]),
-        "fwsnrseg_mixed": fwsnrseg(speech[:n], out_mixed[DELAY_SAMPLE:]),
+        "fwsnrseg_mixed": fwsnrseg(speech[:n], out_mixed[delay:]),
         "fwsnrseg_input": fwsnrseg(speech[:n], mixed[:n]),
     }
     results["si_sdr_gain_db"] = results["si_sdr_mixed_db"] - results["si_sdr_input_db"]
     return results
 
 
-__all__ = ["evaluate", "rms_case", "si_sdr", "stoi"]
+__all__ = ["evaluate", "harness_results", "mix_pcm", "rms_case", "si_sdr", "stoi"]

@@ -31,8 +31,11 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
+
+from make_corpus_torch import DEV_BATTERY  # held-out battery: (tag, seeds, kind, am)
 
 OWN_SAMPLES = os.path.join(REPO, "resources", "audio_samples")
 CORPUS_DIR = os.path.join(REPO, "resources", "corpus")
@@ -40,9 +43,6 @@ CORPUS_DIR = os.path.join(REPO, "resources", "corpus")
 TRAIN_SPEECH_SEED = 100
 TRAIN_NOISE_SEED = 200
 TRAIN_FLOOR_SEED = 300
-# held-out battery: (file tag, noise kind) of resources/audio_samples/*_dev<tag>.wav
-DEV_BATTERY = [("", "am"), ("2", "colored"), ("3", "band"), ("4", "tonal"),
-               ("5", "babble"), ("6", "impulsive"), ("7", "rumble")]
 
 
 def build_wav_tapes(speech_paths, noise_paths):
@@ -85,11 +85,12 @@ def build_corpus_tapes(n_speech: int, n_noise: int):
     return tuple(tapes)
 
 
-def eval_all(params, cfg, reference_samples=None):
-    """Evaluate on every fixture set present; returns {set_name: metrics}.
-    ``reference_samples``: a directory with the reference pair, or None."""
+def fixture_sets(reference_samples=None):
+    """{set name: (speech, noise)} int16 of every fixture set present: the
+    reference pair and its pseudo-real variants (when ``reference_samples``
+    names a directory that holds it), the synthetic fixture and the held-out
+    battery under ``resources/audio_samples/``."""
     from koala_tpu_torch.io import read_wav
-    from koala_tpu_torch.train.evaluate import evaluate
     from koala_tpu_torch.train.pseudo_real import variants
 
     sets = {}
@@ -98,7 +99,7 @@ def eval_all(params, cfg, reference_samples=None):
                              os.path.join(reference_samples, "noise.wav"))
     sets["synth_fixture"] = (os.path.join(OWN_SAMPLES, "speech_synth.wav"),
                              os.path.join(OWN_SAMPLES, "noise_synth.wav"))
-    for tag, kind in DEV_BATTERY:
+    for tag, _, _, kind, _ in DEV_BATTERY:
         sets["dev_heldout%s:%s" % (tag, kind)] = (
             os.path.join(OWN_SAMPLES, "speech_dev%s.wav" % tag),
             os.path.join(OWN_SAMPLES, "noise_dev%s.wav" % tag))
@@ -112,8 +113,16 @@ def eval_all(params, cfg, reference_samples=None):
     if "reference" in loaded:
         for case, pair in variants(*loaded["reference"]).items():
             loaded["reference_%s" % case] = pair
+    return loaded
+
+
+def eval_all(params, cfg, reference_samples=None):
+    """Evaluate on every fixture set present; returns {set_name: metrics}.
+    ``reference_samples``: a directory with the reference pair, or None."""
+    from koala_tpu_torch.train.evaluate import evaluate
+
     all_results = {}
-    for name, (sp_pcm, no_pcm) in loaded.items():
+    for name, (sp_pcm, no_pcm) in fixture_sets(reference_samples).items():
         res = evaluate(params, cfg, sp_pcm, no_pcm, device="cpu")
         all_results[name] = res
         ok = (res["dev_pure_speech"] < 0.02 and res["dev_pure_noise"] < 0.02

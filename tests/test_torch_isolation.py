@@ -253,11 +253,12 @@ def test_bench_and_demos_ask_for_the_card_by_default(script, tmp_path, monkeypat
         module.main(args)
 
 
-# the counterparts of the scripts that need JAX, and the two report readers
-# that need no port
+# the counterparts of the scripts that need JAX, the two data generators
+# among them, and the two report readers that need no port
 PART_B_SCRIPTS = [os.path.join(ROOT, "scripts", s + ".py") for s in (
     "bench_sweep_torch", "pod_wash_torch", "scaling_analysis_torch", "soup_search_torch",
-    "promote_model_torch", "gate_summary", "ledger_from_report")]
+    "promote_model_torch", "make_corpus_torch", "make_fixtures_torch", "gate_summary",
+    "ledger_from_report")]
 
 
 def test_ported_scripts_import_no_jax_optax_or_koala_tpu():

@@ -144,6 +144,31 @@ def test_tcp_concurrent_clients(tcp_port, rng):
         _assert_lsb(outs[i], _direct(pcms[i]))
 
 
+def test_c_client_demo(tcp_port, tmp_path, rng):
+    """demo/c/koala_client_demo.c, built into the test's own directory, run
+    against the port's TCP front (tests/test_tcp_server.py's checks against
+    the JAX front): exit 0, the real-time-factor line, nothing on stderr,
+    and a reply of the input's shape, here also within 2 LSB of the engine."""
+    from koala_tpu_torch.io import read_wav, write_wav
+
+    client = str(tmp_path / "koala_client_demo")
+    build = subprocess.run(["gcc", "-O2", "-Wall", "-Wextra", "-o", client,
+                            os.path.join(REPO, "demo", "c", "koala_client_demo.c")],
+                           capture_output=True, text=True, timeout=120)
+    assert build.returncode == 0, build.stderr
+    pcm = (rng.standard_normal(8000) * 6000).astype(np.int16)
+    in_wav, out_wav = str(tmp_path / "in.wav"), str(tmp_path / "out.wav")
+    write_wav(in_wav, pcm)
+    run = subprocess.run([client, in_wav, out_wav, "127.0.0.1", str(tcp_port)],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "Real time factor" in run.stdout
+    assert run.stderr == ""
+    out = read_wav(out_wav)
+    assert out.shape == pcm.shape
+    _assert_lsb(out, _direct(pcm))
+
+
 def _ws_connect(port):
     conn = socket.create_connection(("127.0.0.1", port), timeout=60)
     key = base64.b64encode(os.urandom(16)).decode()

@@ -33,7 +33,7 @@ from koala_tpu_torch.train import fwsnrseg as tfwsnrseg
 from koala_tpu_torch.train import pseudo_real as tpseudo
 from koala_tpu_torch.train import stoi as tstoi
 
-from torch_ref import ACCESS_KEY, flat_tree, jax_params, rel_err
+from torch_ref import ACCESS_KEY, assert_evaluate_near_jax, flat_tree, jax_params, rel_err
 
 # the packages re-export the function ``train`` under the submodule's name
 jtrain = importlib.import_module("koala_tpu.train.train")
@@ -399,22 +399,15 @@ def fixtures():
 
 
 def test_evaluate_matches_jax(fixtures):
-    """The bundled model on the synth fixture pair through both harnesses.
-    The enhanced int16 streams differ by at most 2 LSB, so: RMS deviations
-    within 1e-4 (2 LSB is 6e-5 of fullscale), SI-SDR and fwSNRseg within
-    0.05 dB, STOI within 1e-3."""
+    """The bundled model on the synth fixture pair through both harnesses,
+    within ``torch_ref.EVALUATE_TOL``."""
     speech, noise = fixtures
     n = 150 * 256                                   # 2.4 s keeps the scan short
     speech, noise = speech[:n], noise[:n]
     tree, cfg = tparams_io.load_params(tparams_io.default_model_path())
     want = jevaluate.evaluate(jax.tree_util.tree_map(jnp.asarray, tree), cfg, speech, noise)
     got = tevaluate.evaluate(tree, cfg, speech, noise, device="cpu")
-    assert set(got) == set(want)
-    for key, tol in (("dev_pure_speech", 1e-4), ("dev_pure_noise", 1e-4), ("dev_mixed", 1e-4),
-                     ("si_sdr_mixed_db", 0.05), ("si_sdr_input_db", 1e-9),
-                     ("si_sdr_gain_db", 0.05), ("stoi_mixed", 1e-3), ("stoi_input", 1e-12),
-                     ("fwsnrseg_mixed", 0.05), ("fwsnrseg_input", 1e-9)):
-        assert abs(got[key] - want[key]) <= tol, (key, got[key], want[key])
+    assert_evaluate_near_jax(got, want)
 
 
 def test_evaluate_needs_a_card_unless_cpu_is_asked(fixtures, monkeypatch):

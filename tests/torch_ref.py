@@ -63,6 +63,25 @@ def snr_db(ref, x):
     return 10 * np.log10(np.sum(ref ** 2) / max(np.sum(err ** 2), 1e-30))
 
 
+# the evaluation harness's figures, the port's against koala_tpu's on the
+# same pair: the enhanced int16 streams differ by at most 2 LSB, so RMS
+# deviations within 1e-4 (2 LSB is 6e-5 of full scale), SI-SDR and fwSNRseg
+# within 0.05 dB, STOI within 1e-3, and the input's own metrics as good as
+# exact
+EVALUATE_TOL = {"dev_pure_speech": 1e-4, "dev_pure_noise": 1e-4, "dev_mixed": 1e-4,
+                "si_sdr_mixed_db": 0.05, "si_sdr_input_db": 1e-9, "si_sdr_gain_db": 0.05,
+                "stoi_mixed": 1e-3, "stoi_input": 1e-12, "fwsnrseg_mixed": 0.05,
+                "fwsnrseg_input": 1e-9}
+
+
+def assert_evaluate_near_jax(got, want):
+    """``got`` (the port's ``evaluate``) key by key within ``EVALUATE_TOL``
+    of ``want`` (koala_tpu's)."""
+    assert set(got) == set(want) == set(EVALUATE_TOL)
+    for key, tol in EVALUATE_TOL.items():
+        assert abs(got[key] - want[key]) <= tol, (key, got[key], want[key])
+
+
 def assert_near_jax(got, want):
     """Within 2 int16 LSB of koala_tpu's output (tests/test_serve.py's bound
     between a batched pool and a single stream), save a handful of samples
