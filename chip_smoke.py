@@ -29,6 +29,23 @@
    parity, lowest SI-SDR gain and worst STOI regression are printed beside
    the CPU port's ``evaluate``. With ``KOALA_REFERENCE_SAMPLES`` the
    reference pair and its 8 pseudo-real variants join the sets.
+2d. The rest of the public surface, each part with its lines (``surface
+   ...``): the mmse model (no kernel, as on the TPU) through
+   ``Koala.process``, ``Koala.enhance``, ``KoalaBatch.process``,
+   ``process_chunk``, ``enhance`` (the mix at B = 64 and the battery at
+   B = 21) and the StreamingServer (16 streams, backlog and live), each
+   >= 35 dB from the port on the CPU with no kernel launched and no plain
+   version called (a traced call's device launches printed), timed, and the
+   battery scored beside the CPU port's ``evaluate``; the identity model
+   through ``create`` / ``create_batch`` (a 256-sample delay, and enhance
+   the input itself, bit for bit); snapshots cut at frame 192 for the
+   bundled model and mmse at B = 21 and 64, after ``process_chunk`` and
+   after ``enhance``, resumed in a fresh card instance (bit for bit), on the
+   CPU and back on the card from the CPU's (>= 35 dB), the kernels held
+   against their plain versions on the resumed halves' inputs; and the 21
+   battery streams through ``scripts/serve_web_torch.py --device best`` over
+   the WebSocket protocol, within the server tests' 2-LSB tolerance (3 LSB on
+   at most one sample in 1000) of a server's backlog run.
 3. Holds each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it: floor bit-identical, GRU within its stated
    tolerance, fused >= 40 dB, chunked equal to continuous and launch equal to
@@ -184,6 +201,18 @@ SWEEP_ITERS = 3                # bench_sweep_torch.py's sections 1 and 1b: timed
 POD_WASH_ARGS = ["--utterances", "256", "--utterance-seconds", "6.0"]   # 4 batches of 64
 # (hidden, layers, has a GRU launch plan, one train step) of the gate phase
 GATE_MODELS = ((384, 2, True, False), (512, 3, True, True), (768, 3, False, True))
+SURFACE_REPS = 5               # the surface phase's timed calls, after one to warm up
+SURFACE_CUT = 192              # its snapshots' cut, in frames (a multiple of 8: enhance's plan)
+SURFACE_SERVER_STREAMS = 16    # its mmse server's streams
+SURFACE_LIVE_S = 2.0           # ... and their live cadence
+# the WebSocket replies against a server's backlog run: the server tests'
+# tolerance between two ways through the server (tests/torch_ref.py
+# assert_near_jax): at most 3 LSB, and past 2 LSB on at most one sample in
+# 1000 of a stream (or 2). The front's rounds fall as its clients' messages
+# arrive, and on the card two ways of cutting one stream into rounds part by
+# up to 4-10 LSB (ROADMAP.md section 3); a single client's TCP round trip
+# keeps the backlog run's rounds and is held to 2 LSB
+WS_LSB = (3, 1000)
 
 
 def fail(msg: str) -> None:
@@ -739,7 +768,7 @@ def training_phases(kt, dev, card, reset_counts, counts):
     g_bound = gru.bound(t_len, b, h, L, hidden_out=True)
     entry = {
         "name": "gru_stack_hs", "route": "cuda", "source": "koala_tpu_torch/csrc/gru.cu",
-        "replaces": "koala_tpu/ops/pallas/gru.py:103", "variant": "return_hidden=True",
+        "replaces": "koala_tpu/ops/pallas/gru.py:104", "variant": "return_hidden=True",
         "launches": train_counts["gru_stack_hs"], "max_abs_err": hs_err,
         "ms": time_ms(lambda: gru.gru_stack(h0, xg, wx, bx, wh, bh, return_hidden=True), 20, 2),
         "plain_ms": time_ms(lambda: gru.gru_stack_ref(h0, xg, wx, bx, wh, bh,
@@ -801,13 +830,14 @@ def pull_all(srv, n_streams, frames, deadline_s=120.0):
 
 
 class PlainCalls:
-    """Counts the calls of the floor's and the GRU's plain versions (the
-    scan branch's step included) while installed."""
+    """Counts the calls of the kernels' plain versions (the floor's, the
+    GRU's with the scan branch's step, the fused entry's) while installed."""
 
     NAMES = (("koala_tpu_torch.models.mask_gru", "floor_scan_ref"),
              ("koala_tpu_torch.models.mask_gru", "_gru_recurrent"),
              ("koala_tpu_torch.ops.kernels.floor", "floor_scan_ref"),
-             ("koala_tpu_torch.ops.kernels.gru", "gru_stack_ref"))
+             ("koala_tpu_torch.ops.kernels.gru", "gru_stack_ref"),
+             ("koala_tpu_torch.ops.kernels.engine_fused", "fused_sequence_ref"))
 
     def __enter__(self):
         self.calls, self.orig = 0, []
@@ -951,6 +981,50 @@ def single_stream_phase(kt, dev, card, reset_counts, counts, pcm):
     return single_counts, floor_path, gru_path
 
 
+def battery_streams(gates):
+    """The acceptance sets as streams: the 7 committed held-out pairs (and
+    the reference pair and its 8 pseudo-real variants where
+    ``KOALA_REFERENCE_SAMPLES`` names them), each set's speech, noise and
+    their saturated int16 sum in whole frames. ``gates`` is
+    scripts/train_model_torch.py. Returns (sets, streams, batch [n, width]
+    int16): streams of other lengths (the resampled variants) end in zeros
+    there, as the delayed paths are causal and enhance pads with zeros past
+    the end."""
+    from koala_tpu_torch.train.evaluate import mix_pcm
+
+    ref = os.environ.get("KOALA_REFERENCE_SAMPLES")
+    sets = {name: pair for name, pair in gates.fixture_sets(ref).items()
+            if name != "synth_fixture"}
+    battery = ["dev_heldout%s:%s" % (row[0], row[3]) for row in gates.DEV_BATTERY]
+    if not set(battery) <= set(sets):
+        fail("held-out pairs missing: %s" % sorted(set(battery) - set(sets)))
+    streams = []
+    for speech, noise in sets.values():
+        n = len(speech) // 256 * 256
+        streams += [speech[:n], noise[:n], mix_pcm(speech, noise)[:n]]
+    batch = np.zeros((len(streams), max(len(x) for x in streams)), np.int16)
+    for i, x in enumerate(streams):
+        batch[i, :len(x)] = x
+    return sets, streams, batch
+
+
+def figures(r):
+    """A set's harness results -> (worst parity of the three cases, SI-SDR
+    gain, STOI regression)."""
+    return (max(r["dev_pure_speech"], r["dev_pure_noise"], r["dev_mixed"]),
+            r["si_sdr_gain_db"], r["stoi_input"] - r["stoi_mixed"])
+
+
+def fused_segments(args):
+    """The workspace segments of a fused call made with ``args`` (params,
+    state, hops, cfg)."""
+    from koala_tpu_torch.ops.kernels import engine_fused
+
+    hops, lay = args[2], engine_fused.Layout(args[3])
+    return -(-hops.shape[1] // engine_fused.segment_hops(
+        hops.shape[0], engine_fused.frame_bytes(lay.hidden, lay.nbp)))
+
+
 def acceptance_phase(kt, dev, card, reset_counts, counts):
     """Phase 2c: Koala's acceptance gates (tests/test_parity.py's: the three
     energy cases at 0.02, SI-SDR gain > 3 dB, no STOI regression beyond 0.01,
@@ -979,30 +1053,16 @@ def acceptance_phase(kt, dev, card, reset_counts, counts):
     from koala_tpu_torch.models import mask_gru as mask_gru_model
     from koala_tpu_torch.models import params_io
     from koala_tpu_torch.ops.kernels import engine_fused
-    from koala_tpu_torch.train.evaluate import evaluate, harness_results, mix_pcm
+    from koala_tpu_torch.train.evaluate import evaluate, harness_results
 
     gates = load_script("train_model_torch")
-    ref = os.environ.get("KOALA_REFERENCE_SAMPLES")
-    sets = {name: pair for name, pair in gates.fixture_sets(ref).items()
-            if name != "synth_fixture"}
-    battery = ["dev_heldout%s:%s" % (row[0], row[3]) for row in gates.DEV_BATTERY]
-    if not set(battery) <= set(sets):
-        fail("acceptance: held-out pairs missing: %s" % sorted(set(battery) - set(sets)))
+    sets, streams, batch = battery_streams(gates)
     if "reference" not in sets:
         print("acceptance: the reference pair and its 8 pseudo-real variants not run "
               "(KOALA_REFERENCE_SAMPLES names no directory that holds them)")
     names = list(sets)
-    streams = []
-    for speech, noise in sets.values():
-        n = len(speech) // 256 * 256
-        streams += [speech[:n], noise[:n], mix_pcm(speech, noise)[:n]]
     lens = [len(x) for x in streams]
-    nb, width = len(streams), max(lens)
-    # streams of other lengths (the resampled variants) end in zeros: the
-    # delayed paths are causal, and enhance pads with zeros past the end
-    batch = np.zeros((nb, width), np.int16)
-    for i, x in enumerate(streams):
-        batch[i, :len(x)] = x
+    nb, width = batch.shape
 
     tree, cfg = params_io.load_params(params_io.default_model_path())
     s = time.perf_counter()
@@ -1042,11 +1102,8 @@ def acceptance_phase(kt, dev, card, reset_counts, counts):
                            ((engine_core, "fused_sequence"), (mask_gru_model, "floor_scan"),
                             (mask_gru_model, "gru_stack")))
     _, _, fused_held = hold_fused("acceptance enhance", rec_fused.args)
-    fused_hops = rec_fused.args[2]
-    lay = engine_fused.Layout(rec_fused.args[3])
-    segments = -(-fused_hops.shape[1] // engine_fused.segment_hops(
-        nb, engine_fused.frame_bytes(lay.hidden, lay.nbp)))
-    tail = hops - fused_hops.shape[1]        # sequence_fast's tail through sequence
+    segments = fused_segments(rec_fused.args)
+    tail = hops - rec_fused.args[2].shape[1]  # sequence_fast's tail through sequence
     if tail:
         held["enhance"] = hold_recurrences("acceptance enhance (%d-hop tail)" % tail, *recs)
 
@@ -1071,11 +1128,6 @@ def acceptance_phase(kt, dev, card, reset_counts, counts):
                             engine_fused_device=len(engine_fused.STAGES) * segments),
             "Koala.enhance": dict(floor_scan=nb, gru_stack=nb, engine_fused=0),
             "process": dict(floor_scan=0, gru_stack=0, engine_fused=0)}
-    def figures(r):
-        """(worst parity of the three cases, SI-SDR gain, STOI regression)"""
-        return (max(r["dev_pure_speech"], r["dev_pure_noise"], r["dev_mixed"]),
-                r["si_sdr_gain_db"], r["stoi_input"] - r["stoi_mixed"])
-
     cpu_fig = {n: figures(r) for n, r in on_cpu.items()}
     summary, failed = {}, []
     for path, (out, delay, got, plain_calls, wall) in runs.items():
@@ -1301,62 +1353,8 @@ def serving_phases(dev, card, reset_counts, counts, pcm, out_chunk, out_cpu):
     # ---- live cadence: every stream one frame every 16 ms, one stream reset
     live_frames = int(LIVE_S * 1000 / 16)
     rs = 5                                      # the stream that is reset
-    srv = server()
-    warm_rows = rows[:, :4].copy()
-    for j in range(4):                          # a few single-frame rounds first
-        srv.push_block(warm_rows[:, j:j + 1], np.ones(B, np.int32))
-        time.sleep(0.016)
-    pull_all(srv, B, 4)
-    srv.reset(rs)
-    time.sleep(0.05)
-    srv.pull(rs)
-    push_at = np.zeros(live_frames)
-    reset_at = live_frames // 2
-    reset_done = threading.Event()
-    live = rows[:, 4:4 + live_frames].copy()
-    live[rs, reset_at:] = 0                     # after the reset, stream rs sends silence
-
-    def producer():
-        t0 = time.perf_counter()
-        for j in range(live_frames):
-            wait = t0 + j * 0.016 - time.perf_counter()
-            if wait > 0:
-                time.sleep(wait)
-            if j == reset_at:
-                srv.reset(rs)
-                reset_done.set()
-            push_at[j] = time.perf_counter()
-            srv.push_block(live[:, j:j + 1], np.ones(B, np.int32))
-
-    th = threading.Thread(target=producer, daemon=True)
-    lat, have = [], np.zeros(B, np.int64)
-    stale = after_reset = 0
-    th.start()
-    deadline = time.time() + LIVE_S + 30
-    while time.time() < deadline:
-        reset_seen = reset_done.is_set()
-        out_rows, cnt = srv.pull_block(8)
-        now = time.perf_counter()
-        for i in np.nonzero(cnt)[0]:
-            c = int(cnt[i])
-            if i == rs:
-                if reset_seen:
-                    after_reset += c
-                    stale += int(np.count_nonzero(out_rows[i, :c]))
-                continue
-            lat.append(now - push_at[have[i]:have[i] + c])
-            have[i] += c
-        if not th.is_alive() and np.delete(have, rs).min() >= live_frames:
-            break
-        if not cnt.any():
-            time.sleep(0.0002)
-    th.join(timeout=10)
-    stats = srv.stats
-    srv.close()
-    if np.delete(have, rs).min() < live_frames:
-        fail("live cadence: %d of %d frames came back" % (np.delete(have, rs).sum(),
-                                                         (B - 1) * live_frames))
-    lat_ms = np.concatenate(lat) * 1e3
+    lat_ms, _, stale, after_reset, stats = live_cadence(server(), rows, live_frames,
+                                                        reset_stream=rs)
     p50, p90 = np.percentile(lat_ms, 50), np.percentile(lat_ms, 90)
     print("path StreamingServer live: %d streams, one frame each every 16 ms for %.1f s: "
           "push-to-pull latency per frame p50 %.3f ms, p90 %.3f ms, max %.3f ms over %d frames; "
@@ -1381,17 +1379,7 @@ def serving_phases(dev, card, reset_counts, counts, pcm, out_chunk, out_cpu):
     try:
         import socket
 
-        deadline = time.time() + 120
-        while True:
-            try:
-                socket.create_connection(("127.0.0.1", port), timeout=1).close()
-                break
-            except OSError:
-                if proc.poll() is not None or time.time() > deadline:
-                    fail("serve_tcp_torch.py did not start: " + (proc.stdout.read()
-                                                                  if proc.poll() is not None
-                                                                  else "timeout"))
-                time.sleep(0.2)
+        wait_for_port(proc, port, "serve_tcp_torch.py")
         s = time.perf_counter()
         conn = socket.create_connection(("127.0.0.1", port), timeout=120)
         conn.sendall(pcm[0, :n].astype("<i2").tobytes())
@@ -1406,12 +1394,7 @@ def serving_phases(dev, card, reset_counts, counts, pcm, out_chunk, out_cpu):
         tcp_s = time.perf_counter() - s
         client = c_client_round_trip(here, port, pcm[0, :n])
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=20)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=20)
+        stop(proc)
     reply = np.frombuffer(b"".join(chunks), dtype="<i2")
     if reply.shape != (n,):
         fail("TCP reply has %s samples for %d sent" % (reply.shape, n))
@@ -1434,6 +1417,106 @@ def serving_phases(dev, card, reset_counts, counts, pcm, out_chunk, out_cpu):
         fail("the C client's reply: %d samples for %d, %d LSB from the backlog run"
              % (len(c_reply), n, d_c))
     return backlog_counts, hold_recurrences("server backlog", rec_floor, rec_gru)
+
+
+def wait_for_port(proc, port, name, timeout_s=120):
+    """Waits until ``proc`` (a front started as a subprocess) accepts
+    connections on ``port``; fails if it exits or the time runs out."""
+    import socket
+
+    deadline = time.time() + timeout_s
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            if proc.poll() is not None or time.time() > deadline:
+                fail("%s did not start: %s" % (name, proc.stdout.read() if proc.poll() is not None
+                                               else "timeout"))
+            time.sleep(0.2)
+
+
+def stop(proc):
+    """Ends a subprocess: terminate, then kill if it lingers."""
+    proc.terminate()
+    try:
+        proc.wait(timeout=20)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=20)
+
+
+def live_cadence(srv, rows, live_frames, reset_stream=None):
+    """Live rounds on ``srv``: four single-frame rounds of rows[:, :4] first,
+    then every stream one frame of rows[:, 4:] every 16 ms for
+    ``live_frames`` frames, pulled as they come back. ``reset_stream`` is
+    reset before the live frames and again half-way, and sends silence after
+    the second reset. Returns (push-to-pull latency of every frame in ms,
+    the live frames that came back [n, live_frames, 256] (the reset stream's
+    left zero), the reset stream's nonzero samples after its reset, its
+    frames after the reset, the server's stats); closes the server."""
+    n = rows.shape[0]
+    rs = reset_stream
+    warm_rows = rows[:, :4].copy()
+    for j in range(4):                          # a few single-frame rounds first
+        srv.push_block(warm_rows[:, j:j + 1], np.ones(n, np.int32))
+        time.sleep(0.016)
+    pull_all(srv, n, 4)
+    if rs is not None:
+        srv.reset(rs)
+        time.sleep(0.05)
+        srv.pull(rs)
+    push_at = np.zeros(live_frames)
+    reset_at = live_frames // 2
+    reset_done = threading.Event()
+    live = rows[:, 4:4 + live_frames].copy()
+    if rs is not None:
+        live[rs, reset_at:] = 0                 # after the reset, stream rs sends silence
+
+    def producer():
+        t0 = time.perf_counter()
+        for j in range(live_frames):
+            wait = t0 + j * 0.016 - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            if rs is not None and j == reset_at:
+                srv.reset(rs)
+                reset_done.set()
+            push_at[j] = time.perf_counter()
+            srv.push_block(live[:, j:j + 1], np.ones(n, np.int32))
+
+    th = threading.Thread(target=producer, daemon=True)
+    lat, have = [], np.zeros(n, np.int64)
+    got = np.zeros((n, live_frames, 256), np.int16)
+    others = [i for i in range(n) if i != rs]
+    stale = after_reset = 0
+    th.start()
+    deadline = time.time() + live_frames * 0.016 + 30
+    while time.time() < deadline:
+        reset_seen = reset_done.is_set()
+        out_rows, cnt = srv.pull_block(8)
+        now = time.perf_counter()
+        for i in np.nonzero(cnt)[0]:
+            c = int(cnt[i])
+            if i == rs:
+                if reset_seen:
+                    after_reset += c
+                    stale += int(np.count_nonzero(out_rows[i, :c]))
+                continue
+            lat.append(now - push_at[have[i]:have[i] + c])
+            got[i, have[i]:have[i] + c] = out_rows[i, :c]
+            have[i] += c
+        if not th.is_alive() and have[others].min() >= live_frames:
+            break
+        if not cnt.any():
+            time.sleep(0.0002)
+    th.join(timeout=10)
+    stats = srv.stats
+    srv.close()
+    if have[others].min() < live_frames:
+        fail("live cadence: %d of %d frames came back" % (have[others].sum(),
+                                                         len(others) * live_frames))
+    return np.concatenate(lat) * 1e3, got, stale, after_reset, stats
 
 
 def c_client_round_trip(here, port, pcm):
@@ -1749,6 +1832,627 @@ def demo_phase(card):
              % (len(gpu), len(speech), db))
 
 
+def device_launches(fn):
+    """The device's launches (kernels, copies and sets) during one call of
+    ``fn``, and how many of them are the port's kernels, from a profiler
+    trace (scripts/bench_sweep_torch.py's grouping)."""
+    from koala_tpu_torch import profiling
+
+    sweep = load_script("bench_sweep_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            fn()
+            torch.cuda.synchronize()
+        groups = sweep.census_of_trace(os.path.join(tmp, profiling.TRACE_FILE))
+    return sum(g["count"] for g in groups.values()), groups["port"]["count"]
+
+
+def card_vs_cpu(got, want):
+    """int16 outputs [n, samples] of the card and the CPU: (dB over all of
+    them, the least dB of a stream, max |diff| in LSB, share of samples more
+    than 2 LSB apart)."""
+    got, want = np.atleast_2d(got), np.atleast_2d(want)
+    if got.shape != want.shape:
+        return float("-inf"), float("-inf"), -1, 1.0
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    return (snr_db(want.astype(np.float64), got.astype(np.float64)),
+            min(snr_db(w.astype(np.float64), g.astype(np.float64)) for g, w in zip(got, want)),
+            int(diff.max()), float(np.count_nonzero(diff > 2) / diff.size))
+
+
+def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
+    """Part 1 of the surface phase: the mmse model (no kernel, on the TPU
+    either) through every entry point on the card. Each path's output is
+    held to the port on the CPU on the same input (>= CHUNK_SNR_DB over all
+    its streams); its census is one traced call (device launches, none of
+    them the port's kernels) and its counters and plain-version calls are
+    read over its timed calls (all 0); the timed calls follow one to warm up
+    (``SURFACE_REPS`` of them, the per-frame paths one pass of a stream).
+    The battery paths are scored by the harness beside the CPU port's
+    ``evaluate`` for the record. Returns (failures, summary)."""
+    from koala_tpu_torch.constants import DELAY_SAMPLE
+    from koala_tpu_torch.models import params_io
+    from koala_tpu_torch.serve import StreamingServer
+    from koala_tpu_torch.train.evaluate import evaluate, harness_results
+
+    sets, streams, battery = bat
+    names, lens = list(sets), [len(x) for x in streams]
+    mix = pcm[:, :T * 256]
+    failures, summary, scored = [], {}, {}
+
+    def single(device):
+        return kt.create(ACCESS_KEY, model_path=path, device=device)
+
+    def pool(b):
+        return lambda device: kt.create_batch(ACCESS_KEY, batch_size=b, model_path=path,
+                                              device=device)
+
+    lat = []
+
+    def frames_one(k):
+        del lat[:]
+        out = []
+        for s in range(0, mix.shape[1], 256):
+            t0 = time.perf_counter()
+            out.append(k.process(mix[0, s:s + 256].tolist()))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(out, np.int16).reshape(1, -1)
+
+    def frames_pool(kb):
+        del lat[:]
+        out = []
+        for s in range(0, battery.shape[1], 256):
+            t0 = time.perf_counter()
+            out.append(kb.process(battery[:, s:s + 256]))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return np.concatenate(out, axis=1)
+
+    def one_at_a_time(k):
+        out = np.zeros_like(battery)
+        for i, x in enumerate(streams):
+            k.reset()
+            out[i, :len(x)] = k.enhance(x)
+        return out
+
+    # (path, input, maker, call, the census's call, timed calls, battery delay)
+    paths = [
+        ("Koala.process", "mix stream 0, 376 frames", single, frames_one,
+         lambda k: k.process(mix[0, :256].tolist()), 1, None),
+        ("Koala.enhance", "mix stream 0, 6.0 s", single, lambda k: k.enhance(mix[0])[None],
+         lambda k: k.enhance(mix[0]), SURFACE_REPS, None),
+        ("Koala.enhance", "battery, 21 streams one at a time", single, one_at_a_time,
+         lambda k: k.enhance(streams[0]), 1, 0),
+        ("KoalaBatch.process", "battery B=21, 365 frames", pool(len(battery)), frames_pool,
+         lambda kb: kb.process(battery[:, :256]), 1, DELAY_SAMPLE),
+        ("process_chunk", "mix B=64 x 376", pool(B), lambda kb: kb.process_chunk(mix),
+         lambda kb: kb.process_chunk(mix), SURFACE_REPS, None),
+        ("process_chunk", "battery B=21 x 365", pool(len(battery)),
+         lambda kb: kb.process_chunk(battery), lambda kb: kb.process_chunk(battery),
+         SURFACE_REPS, DELAY_SAMPLE),
+        ("enhance", "mix B=64 x 376", pool(B), lambda kb: kb.enhance(mix),
+         lambda kb: kb.enhance(mix), SURFACE_REPS, None),
+        ("enhance", "battery B=21 x 365", pool(len(battery)), lambda kb: kb.enhance(battery),
+         lambda kb: kb.enhance(battery), SURFACE_REPS, 0),
+    ]
+    for name, label, make, call, census_call, reps, delay in paths:
+        started = time.perf_counter()
+        cpu = make("cpu")
+        want = call(cpu)
+        cpu.delete()
+        inst = make("gpu")
+        census_call(inst)                       # warm-up (lazy set-up)
+        inst.reset()
+        s = time.perf_counter()
+        launches, port = device_launches(lambda: census_call(inst))
+        census_s = time.perf_counter() - s
+        runs, out = [], None
+        torch.cuda.synchronize()
+        reset_counts()
+        with PlainCalls() as plain:
+            for _ in range(reps):
+                inst.reset()
+                torch.cuda.synchronize()
+                s = time.perf_counter()
+                got = call(inst)
+                runs.append((time.perf_counter() - s) * 1e3)
+                if out is None:
+                    out = got
+                elif not np.array_equal(got, out):
+                    failures.append("mmse %s (%s): two calls from a reset differ" % (name, label))
+        launched = counts()
+        inst.delete()
+        db, least, lsb, share = card_vs_cpu(out, want)
+        key = "%s (%s)" % (name, label)
+        summary[key] = {"db": db, "least_stream_db": least, "max_lsb": lsb,
+                        "share_over_2_lsb": share, "device_launches_per_call": launches,
+                        "port_launches": port, "ms": runs, "plain_calls": plain.calls}
+        if name.endswith("process"):            # a call is a frame: its latencies
+            p50, p90 = np.percentile(lat, 50), np.percentile(lat, 90)
+            summary[key].update(p50_ms=p50, p90_ms=p90)
+            timing = "per frame p50 %.3f ms, p90 %.3f ms over %d frames" % (p50, p90, len(lat))
+            if name == "Koala.process" and p50 >= 16.0:
+                failures.append("mmse Koala.process: p50 %.3f ms a frame is not below 16 ms"
+                                % p50)
+        else:
+            timing = "median %.3f ms, least %.3f of %d calls" % (statistics.median(runs),
+                                                                 min(runs), reps)
+        print("surface mmse %s (%s): card vs CPU %.2f dB (least stream %.2f), max|diff| %d LSB, "
+              "%.2g of samples > 2 LSB; census %d device launches a call, %d of them the port's "
+              "kernels; counters %s, plain-version calls %d; %s on %s (the check %.1f s, its "
+              "trace %.1f s)" % (name, label, db, least, lsb, share, launches, port, launched,
+                                plain.calls, timing, card, time.perf_counter() - started,
+                                census_s))
+        if db < CHUNK_SNR_DB or any(launched.values()) or plain.calls or port:
+            failures.append("mmse %s (%s): %.2f dB from the CPU, counters %s, %d plain calls, "
+                            "%d port kernels traced" % (name, label, db, launched, plain.calls,
+                                                        port))
+        if delay is not None:
+            scored[key] = {n: figures(harness_results(
+                *sets[n], *(out[3 * i + j, :lens[3 * i + j]] for j in range(3)), delay=delay))
+                for i, n in enumerate(names)}
+
+    # the battery's figures beside the CPU port's evaluate (for the record:
+    # mmse is not held to mask_gru's gates or its ledger)
+    tree, cfg = params_io.load_params(path)
+    cpu_fig = {n: figures(evaluate(tree, cfg, *sets[n], device="cpu")) for n in names}
+    for key, fig in [("CPU evaluate", cpu_fig)] + list(scored.items()):
+        worst, low = max(names, key=lambda n: fig[n][0]), min(names, key=lambda n: fig[n][1])
+        print("surface mmse battery %s: worst parity %.6f (%s), lowest SI-SDR gain %.4f dB (%s)"
+              % (key, fig[worst][0], worst, fig[low][1], low))
+        summary.setdefault(key, {}).update(worst_parity=[worst, fig[worst][0]],
+                                           lowest_gain_db=[low, fig[low][1]])
+
+    # the StreamingServer, 16 of the mix streams: backlog rounds, then live
+    n_srv = SURFACE_SERVER_STREAMS
+    rows = np.ascontiguousarray(mix[:n_srv].reshape(n_srv, T, 256))
+    cpu = kt.create_batch(ACCESS_KEY, batch_size=n_srv, model_path=path, device="cpu")
+    want = cpu.process_chunk(mix[:n_srv])
+    cpu.delete()
+
+    def server():
+        return StreamingServer(ACCESS_KEY, num_streams=n_srv, model_path=path, device="gpu",
+                               capacity_frames=T, chunk_frames=SERVE_CHUNK)
+
+    warm = server()
+    warm.push_block(rows[:, :SERVE_CHUNK], np.full(n_srv, SERVE_CHUNK, np.int32))
+    pull_all(warm, n_srv, SERVE_CHUNK)
+    steps = warm.stats["device_steps"]
+
+    def one_round():
+        warm.push_block(rows[:, SERVE_CHUNK:2 * SERVE_CHUNK], np.full(n_srv, SERVE_CHUNK, np.int32))
+        pull_all(warm, n_srv, SERVE_CHUNK)
+
+    launches, port = device_launches(one_round)
+    per_round = launches / max(1, warm.stats["device_steps"] - steps)
+    warm.close()
+    srv = server()
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainCalls() as plain:
+        s = time.perf_counter()
+        srv.push_block(rows, np.full(n_srv, T, np.int32))
+        got = pull_all(srv, n_srv, T)
+        wall = time.perf_counter() - s
+    launched = counts()
+    stats = srv.stats
+    srv.close()
+    db, least, lsb, share = card_vs_cpu(got.reshape(n_srv, -1), want)
+    print("surface mmse StreamingServer backlog (%d streams x %d frames, chunk %d): %.1f audio-s/s "
+          "(%.3f s wall), device steps %d, dropped %d / %d; card vs CPU process_chunk %.2f dB "
+          "(least stream %.2f), max|diff| %d LSB, %.2g > 2 LSB; census %.1f device launches a "
+          "round, %d the port's kernels; counters %s, plain-version calls %d on %s"
+          % (n_srv, T, SERVE_CHUNK, n_srv * T * 256 / 16000.0 / wall, wall, stats["device_steps"],
+             stats["dropped_samples"], stats["dropped_output_samples"], db, least, lsb, share,
+             per_round, port, launched, plain.calls, card))
+    summary["StreamingServer backlog"] = {"audio_s_per_s": n_srv * T * 256 / 16000.0 / wall,
+                                          "db": db, "max_lsb": lsb,
+                                          "device_launches_per_round": per_round}
+    if db < CHUNK_SNR_DB or any(launched.values()) or plain.calls or port \
+            or stats["dropped_samples"] or stats["dropped_output_samples"]:
+        failures.append("mmse server backlog: %.2f dB from the CPU, counters %s, %d plain calls, "
+                        "%d port kernels, stats %s" % (db, launched, plain.calls, port, stats))
+    live_frames = int(SURFACE_LIVE_S * 1000 / 16)
+    reset_counts()
+    with PlainCalls() as plain:
+        lat_ms, got, _, _, stats = live_cadence(server(), rows, live_frames)
+    launched = counts()
+    db, least, lsb, share = card_vs_cpu(got.reshape(n_srv, -1),
+                                        want[:, 4 * 256:(4 + live_frames) * 256])
+    p50, p90 = np.percentile(lat_ms, 50), np.percentile(lat_ms, 90)
+    print("surface mmse StreamingServer live (%d streams, a frame each every 16 ms for %.1f s): "
+          "push-to-pull p50 %.3f ms, p90 %.3f ms over %d frames, device steps %d; card vs CPU "
+          "%.2f dB (least stream %.2f), max|diff| %d LSB; counters %s, plain-version calls %d "
+          "on %s" % (n_srv, SURFACE_LIVE_S, p50, p90, len(lat_ms), stats["device_steps"], db,
+                     least, lsb, launched, plain.calls, card))
+    summary["StreamingServer live"] = {"p50_ms": p50, "p90_ms": p90, "db": db, "max_lsb": lsb}
+    if db < CHUNK_SNR_DB or p50 >= 16.0 or any(launched.values()) or plain.calls:
+        failures.append("mmse server live: %.2f dB, p50 %.3f ms, counters %s, %d plain calls"
+                        % (db, p50, launched, plain.calls))
+    return failures, summary
+
+
+def surface_identity(kt, reset_counts, counts, pcm, battery, path):
+    """Part 2: the identity model through ``create`` / ``create_batch`` on the
+    card: every streaming entry must give the input back delayed by exactly
+    ``delay_sample`` (silence before it), ``enhance`` the input itself, bit
+    for bit, with no kernel launched and no plain version called. Returns
+    (failures, summary)."""
+    from koala_tpu_torch.constants import DELAY_SAMPLE
+
+    x1 = pcm[:1, :T * 256 - 100]               # a length that is no whole number of frames
+    xf = pcm[:1, :T * 256]
+    failures, checked = [], []
+
+    def check(entry, b, out, x, delayed):
+        want = np.zeros_like(x)
+        if delayed:
+            want[:, DELAY_SAMPLE:] = x[:, :-DELAY_SAMPLE]
+        else:
+            want = x
+        exact = out.shape == want.shape and np.array_equal(out, want)
+        checked.append("%s B=%d %s" % (entry, b, "exact" if exact else "DIFFERS"))
+        if not exact:
+            failures.append("identity %s at B=%d is not the input%s, bit for bit"
+                            % (entry, b, " delayed by %d" % DELAY_SAMPLE if delayed else ""))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainCalls() as plain:
+        k = kt.create(ACCESS_KEY, model_path=path, device="gpu")
+        check("Koala.process", 1, np.asarray([k.process(xf[0, s:s + 256].tolist())
+                                              for s in range(0, xf.shape[1], 256)],
+                                             np.int16).reshape(1, -1), xf, True)
+        k.reset()
+        check("Koala.enhance", 1, k.enhance(x1[0])[None], x1, False)
+        k.delete()
+        for x in (xf, battery):
+            b = x.shape[0]
+            kb = kt.create_batch(ACCESS_KEY, batch_size=b, model_path=path, device="gpu")
+            check("KoalaBatch.process", b, np.concatenate(
+                [kb.process(x[:, s:s + 256]) for s in range(0, x.shape[1], 256)], axis=1), x, True)
+            kb.reset()
+            check("process_chunk", b, kb.process_chunk(x), x, True)
+            kb.reset()
+            check("enhance", b, kb.enhance(x[:, :-100]), x[:, :-100], False)
+            kb.delete()
+    launched = counts()
+    print("surface identity (delay %d): %s; counters %s, plain-version calls %d"
+          % (DELAY_SAMPLE, ", ".join(checked), launched, plain.calls))
+    if any(launched.values()) or plain.calls:
+        failures.append("identity launched %s with %d plain calls" % (launched, plain.calls))
+    return failures, {"checked": checked, "launches": launched}
+
+
+def surface_snapshots(kt, card, reset_counts, counts, pcm, battery, path, totals):
+    """Part 3: snapshots mid-stream. The bundled mask_gru model (all three
+    kernels) and the mmse model, at B = 21 (the battery) and B = 64 (the
+    mix), cut at frame ``SURFACE_CUT``: the first half, ``save_state``, then
+    the second half (a) in the same card instance, (b) in a fresh card
+    instance after ``load_state``, (c) in a CPU instance after
+    ``load_state``, (d) on the card from the snapshot the CPU took after its
+    own first half; once with ``process_chunk`` for both halves, once with
+    ``enhance``. (b) must equal (a) bit for bit; (c) be >= CHUNK_SNR_DB from
+    the CPU's uninterrupted run (both halves in one instance), (d) from the
+    card's; every snapshot have the engine's keys and shapes with float32
+    leaves. The card runs' launches add to ``totals``; the kernels are held
+    against their plain versions on (b)'s inputs. Returns (failures,
+    summary, recurrence holds, fused holds)."""
+    from koala_tpu_torch.engine import core as engine_core
+    from koala_tpu_torch.engine.stream import load_model
+    from koala_tpu_torch.models import mask_gru as mask_gru_model
+    from koala_tpu_torch.models import params_io
+    from koala_tpu_torch.ops.kernels import engine_fused
+
+    cut = SURFACE_CUT * 256
+    failures, summary, held, fused_held = [], {}, {}, {}
+
+    def counted(fn, recorders=()):
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            plain = stack.enter_context(PlainCalls())
+            recs = [stack.enter_context(Recorder(m, name)) for m, name in recorders]
+            out = fn()
+            torch.cuda.synchronize()
+        got = counts()
+        for key, v in got.items():
+            totals[key] += v
+        return out, got, plain.calls, recs
+
+    for model, model_path in (("mask_gru", params_io.default_model_path()), ("mmse", path)):
+        engine, _ = load_model(model_path, "cpu")
+        for x in (battery, pcm[:, :T * 256]):
+            b = x.shape[0]
+            layout = {k: v.shape for k, v in
+                      params_io._flatten(engine.init_state((b,), "cpu")).items()}
+            for mode in ("process_chunk", "enhance"):
+                case = "%s B=%d %s" % (model, b, mode)
+
+                def make(device, snap=None):
+                    kb = kt.create_batch(ACCESS_KEY, batch_size=b, model_path=model_path,
+                                         device=device)
+                    if snap is not None:
+                        kb.load_state(snap)
+                    return kb
+
+                def half(kb, second):
+                    return getattr(kb, mode)(x[:, cut:] if second else x[:, :cut])
+
+                card_a = make("gpu")
+                counted(lambda: half(card_a, False))
+                snap_card = card_a.save_state()
+                second_a = counted(lambda: half(card_a, True))[0]
+                card_a.delete()
+                card_b = make("gpu", snap_card)
+                recorders = ((mask_gru_model, "floor_scan"), (mask_gru_model, "gru_stack")) \
+                    + (((engine_core, "fused_sequence"),) if mode == "enhance" else ())
+                second_b, got_b, plain_b, recs = counted(
+                    lambda: half(card_b, True), recorders if model == "mask_gru" else ())
+                card_b.delete()
+                cpu_a = make("cpu")
+                half(cpu_a, False)
+                snap_cpu = cpu_a.save_state()
+                second_ca = half(cpu_a, True)
+                cpu_a.delete()
+                cpu_c = make("cpu", snap_card)
+                second_c = half(cpu_c, True)
+                cpu_c.delete()
+                card_d = make("gpu", snap_cpu)
+                second_d = counted(lambda: half(card_d, True))[0]
+                card_d.delete()
+
+                same = np.array_equal(second_b, second_a)
+                c_db = card_vs_cpu(second_c, second_ca)
+                d_db = card_vs_cpu(second_d, second_a)
+                moved = {k: float(np.abs(v - snap_cpu[k]).max()) for k, v in snap_card.items()
+                         if np.shape(v) == np.shape(snap_cpu.get(k))}
+                bad_layout = [w for w, snap in (("card", snap_card), ("CPU", snap_cpu))
+                              if {k: np.shape(v) for k, v in snap.items()} != layout
+                              or any(np.asarray(v).dtype != np.float32 for v in snap.values())]
+                want = {"floor_scan": 0, "gru_stack": 0, "engine_fused": 0}
+                if model == "mask_gru":
+                    want = {"floor_scan": 1, "gru_stack": 1,
+                            "engine_fused": int(mode == "enhance")}
+                    if mode == "enhance":
+                        want["engine_fused_device"] = \
+                            len(engine_fused.STAGES) * fused_segments(recs[2].args)
+                launches_ok = all(got_b[k] == v for k, v in want.items()) \
+                    and not got_b["gru_stack_hs"] and plain_b == 0
+                print("surface snapshot %s, cut at frame %d: (b) fresh card instance after "
+                      "load_state %s (a) bit for bit; (c) CPU after load_state %.2f dB (least "
+                      "stream %.2f, max|diff| %d LSB) from the CPU's uninterrupted run; (d) card "
+                      "from the CPU's snapshot %.2f dB (least %.2f, %d LSB) from the card's; "
+                      "snapshot keys %s %s, card's against CPU's max|diff| %s; (b) launched %s, "
+                      "plain-version calls %d on %s"
+                      % (case, SURFACE_CUT, "equals" if same else "DIFFERS FROM", c_db[0],
+                         c_db[1], c_db[2], d_db[0], d_db[1], d_db[2], sorted(layout),
+                         "float32, shapes as the engine's" if not bad_layout
+                         else "WRONG in %s" % bad_layout,
+                         ", ".join("%s %.3g" % kv for kv in sorted(moved.items())), got_b,
+                         plain_b, card))
+                summary[case] = {"b_bit_exact": same, "c_db": c_db[0], "c_max_lsb": c_db[2],
+                                 "d_db": d_db[0], "d_max_lsb": d_db[2], "launches_b": got_b,
+                                 "c_least_stream_db": c_db[1], "d_least_stream_db": d_db[1],
+                                 "snapshot_card_vs_cpu": moved}
+                if not same or c_db[0] < CHUNK_SNR_DB or d_db[0] < CHUNK_SNR_DB or bad_layout \
+                        or not launches_ok:
+                    failures.append("snapshot %s: (b) bit-exact %s, (c) %.2f dB, (d) %.2f dB, "
+                                    "layout wrong in %s, (b) launched %s with %d plain calls, "
+                                    "expected %s" % (case, same, c_db[0], d_db[0], bad_layout,
+                                                     got_b, plain_b, want))
+                if model == "mask_gru":
+                    # the kernels against their plain versions on (b)'s inputs
+                    held["%s B=%d" % (mode, b)] = hold_recurrences(
+                        "surface snapshot %s (b)" % case, recs[0], recs[1])
+                    if mode == "enhance":
+                        fused_held["enhance B=%d" % b] = hold_fused(
+                            "surface snapshot %s (b)" % case, recs[2].args)[2]
+    return failures, summary, held, fused_held
+
+
+def ws_round_trip(port, pcm):
+    """``pcm`` through the WebSocket protocol to the front on ``port``, as a
+    browser sends it: the upgrade handshake, masked binary messages of 16
+    frames, then the text "eof"; returns the binary replies up to "done"."""
+    import base64
+    import socket
+    import struct
+
+    from koala_tpu_torch.websocket import OP_BINARY, OP_CLOSE, OP_TEXT, recv_frame
+
+    conn = socket.create_connection(("127.0.0.1", port), timeout=120)
+    try:
+        key = base64.b64encode(os.urandom(16)).decode()
+        conn.sendall(("GET / HTTP/1.1\r\nHost: 127.0.0.1:%d\r\nUpgrade: websocket\r\n"
+                      "Connection: Upgrade\r\nSec-WebSocket-Key: %s\r\n"
+                      "Sec-WebSocket-Version: 13\r\n\r\n" % (port, key)).encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            chunk = conn.recv(4096)
+            if not chunk:
+                raise RuntimeError("the WebSocket front closed during the handshake")
+            head += chunk
+        if b" 101 " not in head.split(b"\r\n", 1)[0]:
+            raise RuntimeError("the WebSocket front refused the upgrade: %r" % head[:200])
+
+        def send(payload, opcode):
+            mask = np.frombuffer(os.urandom(4), np.uint8)
+            n = len(payload)
+            hdr = struct.pack(">BB", 0x80 | opcode, 0x80 | n) if n < 126 \
+                else struct.pack(">BBH", 0x80 | opcode, 0x80 | 126, n)
+            body = np.frombuffer(payload, np.uint8) ^ np.resize(mask, n)
+            conn.sendall(hdr + mask.tobytes() + body.tobytes())
+
+        for i in range(0, len(pcm), 16 * 256):
+            send(pcm[i:i + 16 * 256].astype("<i2").tobytes(), OP_BINARY)
+        send(b"eof", OP_TEXT)
+        out = []
+        while True:
+            opcode, payload = recv_frame(conn)
+            if opcode is None or opcode == OP_CLOSE:
+                raise RuntimeError("the WebSocket front closed before \"done\"")
+            if opcode == OP_TEXT and payload == b"done":
+                break
+            if opcode == OP_BINARY:
+                out.append(payload)
+    finally:
+        conn.close()
+    return np.frombuffer(b"".join(out), "<i2")
+
+
+def start_web_front(n_streams):
+    """``scripts/serve_web_torch.py --device best`` on free ports with the
+    bundled model and ``n_streams`` slots. Returns (process, HTTP port,
+    WebSocket port)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port, ws_port = free_port(), free_port()
+    while ws_port == port:
+        ws_port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "scripts", "serve_web_torch.py"), "--device", "best",
+         "--port", str(port), "--ws-port", str(ws_port), "--streams", str(n_streams)],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, port, ws_port
+
+
+def surface_websocket(card, battery, front):
+    """Part 4: the 21 battery streams through the WebSocket front on the card
+    (``start_web_front``), each from a client thread of its own, against a
+    backlog run of an in-process StreamingServer on the same streams (the
+    front's chunk and slots; a flush frame after each stream): every reply
+    whole, aligned 1:1 and within ``WS_LSB`` of the backlog run. Returns
+    (failures, summary)."""
+    import koala_tpu_torch as kt
+    from koala_tpu_torch.serve import StreamingServer
+
+    proc, port, ws_port = front
+    nb, n = battery.shape
+    frames = n // 256
+    rows = np.zeros((nb, frames + 1, 256), np.int16)      # one zero frame flushes the tail
+    rows[:, :frames] = battery.reshape(nb, frames, 256)
+
+    def backlog(**kw):
+        srv = StreamingServer(ACCESS_KEY, num_streams=nb, device="gpu",
+                              capacity_frames=frames + 1, **kw)
+        srv.push_block(rows, np.full(nb, frames + 1, np.int32))
+        out = pull_all(srv, nb, frames + 1).reshape(nb, -1)
+        srv.close()
+        return out
+
+    def spread(a, b):
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        return int(d.max()), int(np.count_nonzero(d > 2))
+
+    served = backlog()
+    # the card's own spread between two ways of cutting the same streams into
+    # calls: the backlog's rounds of 32 frames (the floor and GRU kernels)
+    # against one process_chunk call, and against rounds of one frame (the step)
+    kb = kt.create_batch(ACCESS_KEY, batch_size=nb, device="gpu")
+    one_call = spread(served[:, :n], kb.process_chunk(battery))
+    kb.delete()
+    steps = spread(served, backlog(chunk_frames=1))
+    print("surface websocket reference: the server's backlog run in rounds of 32 frames against "
+          "one process_chunk call %d LSB (%d samples past 2 LSB), against rounds of one frame "
+          "(the step) %d LSB (%d past 2) of %d samples on %s"
+          % (one_call[0], one_call[1], steps[0], steps[1], nb * n, card))
+    wait_for_port(proc, port, "serve_web_torch.py")
+    replies, errors = [None] * nb, []
+
+    def client(i):
+        try:
+            replies[i] = ws_round_trip(ws_port, battery[i])
+        except (OSError, RuntimeError) as e:
+            errors.append("stream %d: %s" % (i, e))
+
+    s = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(nb)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=180)
+    wall = time.perf_counter() - s
+    whole = [r is not None and r.shape == (n,) for r in replies]
+    diffs = [np.abs(r.astype(np.int32) - served[i, 256:256 + n])
+             for i, r in enumerate(replies) if whole[i]]
+    lsb = max((int(d.max()) for d in diffs), default=-1)
+    at_3 = sum(int(np.count_nonzero(d == 3)) for d in diffs)
+    past_1 = sum(int(np.count_nonzero(d > 1)) for d in diffs)
+    within = all(d.max() <= WS_LSB[0] and np.count_nonzero(d > WS_LSB[0] - 1) <= max(
+        2, n // WS_LSB[1]) for d in diffs)
+    print("surface websocket (scripts/serve_web_torch.py --device best, %d clients at once, "
+          "%d samples each in masked messages of 16 frames): %d whole replies, aligned 1:1; "
+          "from the server's backlog run: largest difference %d LSB, %d samples at 3 LSB and %d "
+          "past 1 LSB of %d; %.3f s wall on %s"
+          % (nb, n, sum(whole), lsb, at_3, past_1, nb * n, wall, card))
+    failures = errors + ([] if all(whole) and within and not any(
+        th.is_alive() for th in threads) else ["websocket: %d of %d replies whole, %d LSB from "
+                                                "the backlog run (%d samples at 3)"
+                                                % (sum(whole), nb, lsb, at_3)])
+    return failures, {"clients": nb, "max_lsb": lsb, "samples_at_3_lsb": at_3,
+                      "samples_past_1_lsb": past_1, "seconds": wall,
+                      "backlog_vs_one_call": one_call, "backlog_vs_steps": steps}
+
+
+def surface_phase(kt, card, reset_counts, counts, pcm):
+    """Phase 2d: the rest of the public surface on the card, in four parts:
+    the mmse model through every entry point and the server, the identity
+    model through ``create`` / ``create_batch``, snapshots moved mid-stream
+    between the card and the CPU, and the WebSocket front. Each part prints
+    its lines (``surface ...``); a part that fails (or raises) fails the run
+    after all four have printed. Returns the kernels' launches in the phase
+    (the snapshot part's card runs) and what the kernels showed against their
+    plain versions there."""
+    from koala_tpu_torch.models import identity as identity_model
+    from koala_tpu_torch.models import mmse as mmse_model
+    from koala_tpu_torch.models import params_io
+
+    bat = battery_streams(load_script("train_model_torch"))
+    battery = bat[2]
+    totals = dict.fromkeys(("floor_scan", "gru_stack", "gru_stack_hs", "engine_fused",
+                            "engine_fused_device"), 0)
+    failures, summary, held, fused_held, front = [], {}, {}, {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        mmse_path = os.path.join(tmp, "mmse.pv")
+        params_io.save_params(mmse_path, mmse_model.init_params(), mmse_model.DEFAULT_CONFIG)
+        identity_path = os.path.join(tmp, "identity.pv")
+        params_io.save_params(identity_path, identity_model.init_params(),
+                              identity_model.DEFAULT_CONFIG)
+        parts = [
+            ("mmse", lambda: surface_mmse(kt, card, reset_counts, counts, pcm, bat, mmse_path)),
+            ("identity", lambda: surface_identity(kt, reset_counts, counts, pcm, battery,
+                                                  identity_path)),
+            ("snapshot", lambda: surface_snapshots(kt, card, reset_counts, counts, pcm, battery,
+                                                   mmse_path, totals)),
+            ("websocket", lambda: surface_websocket(card, battery, front))]
+        try:
+            for name, part in parts:
+                if name == "snapshot":
+                    # the front starts in its own process while the snapshots run
+                    front = start_web_front(len(battery))
+                s = time.perf_counter()
+                try:
+                    part_failures, part_summary, *holds = part()
+                except (Exception, SystemExit) as e:   # a part's fault fails the run, later
+                    import traceback
+
+                    traceback.print_exc()
+                    part_failures, part_summary, holds = ["%s raised %r" % (name, e)], {}, []
+                if holds:
+                    held, fused_held = holds
+                summary[name] = dict(part_summary, seconds=time.perf_counter() - s)
+                print("surface %s: %s in %.1f s" % (name, "ok" if not part_failures else
+                                                    "FAILED: " + "; ".join(part_failures),
+                                                    time.perf_counter() - s), flush=True)
+                failures += part_failures
+        finally:
+            if front is not None:
+                stop(front[0])
+    print(json.dumps({"surface": summary, "launches": totals, "card": card}), flush=True)
+    if failures:
+        fail("surface: " + "; ".join(failures))
+    return totals, held, fused_held
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA card: this script measures the port on a card")
@@ -1842,6 +2546,12 @@ def main() -> None:
                                                                  counts)
     accept_s = time.perf_counter() - s
 
+    # the rest of the public surface: mmse, identity, snapshots, the WebSocket front
+    s = time.perf_counter()
+    surface_counts, surface_held, surface_fused = surface_phase(kt, card, reset_counts, counts,
+                                                                pcm)
+    surface_s = time.perf_counter() - s
+
     # KoalaBatch.process_chunk: floor + GRU kernels
     kb.process_chunk(pcm[:, :8 * 256])       # warm-up (lazy set-up)
     kb.reset()
@@ -1886,14 +2596,11 @@ def main() -> None:
     if enh_counts["engine_fused"] < 1:
         fail("enhance did not launch the fused engine kernel")
     # the device launches of enhance's own run: five stages for every segment
-    fused_hops = rec_fused.args[2]
-    fused_lay = engine_fused.Layout(rec_fused.args[3])
-    fused_segments = -(-fused_hops.shape[1] // engine_fused.segment_hops(
-        fused_hops.shape[0], engine_fused.frame_bytes(fused_lay.hidden, fused_lay.nbp)))
+    segments = fused_segments(rec_fused.args)
     if enh_counts["engine_fused"] != 1 or \
-            enh_counts["engine_fused_device"] != len(engine_fused.STAGES) * fused_segments:
+            enh_counts["engine_fused_device"] != len(engine_fused.STAGES) * segments:
         fail("enhance should make one fused call of %d segment(s), %d device launches a "
-             "segment: %s" % (fused_segments, len(engine_fused.STAGES), enh_counts))
+             "segment: %s" % (segments, len(engine_fused.STAGES), enh_counts))
     fused_device_launches = enh_counts["engine_fused_device"] // enh_counts["engine_fused"]
     if out_enh.shape != (B, n_enh):
         fail("enhance output shape %s" % (out_enh.shape,))
@@ -1939,7 +2646,7 @@ def main() -> None:
     fl_bound = floor.bound(t_len, b, nb)
     kernels.append({
         "name": "floor_scan", "route": "cuda", "source": "koala_tpu_torch/csrc/floor.cu",
-        "replaces": "koala_tpu/ops/pallas/floor.py:43", "launches": launches["floor_scan"],
+        "replaces": "koala_tpu/ops/pallas/floor.py:44", "launches": launches["floor_scan"],
         "max_abs_err": max(float((kf - rf).abs().max()), float((kfl - rfl).abs().max())),
         # ms: a loop on an idle card, as for every row. At a few microseconds
         # of work that reads the host, so queued_ms (the calls wait behind a
@@ -1974,7 +2681,7 @@ def main() -> None:
         lib_ms = time_ms(library_gru, 10)
     kernels.append({
         "name": "gru_stack", "route": "cuda", "source": "koala_tpu_torch/csrc/gru.cu",
-        "replaces": "koala_tpu/ops/pallas/gru.py:103", "launches": launches["gru_stack"],
+        "replaces": "koala_tpu/ops/pallas/gru.py:104", "launches": launches["gru_stack"],
         "max_abs_err": max(gy_err, gh_err),
         "ms": time_ms(lambda: gru.gru_stack(h0, xg, wx, bx, wh, bh), 20, 2),
         "plain_ms": time_ms(lambda: gru.gru_stack_ref(h0, xg, wx, bx, wh, bh), 2, 1),
@@ -2109,16 +2816,25 @@ def main() -> None:
             "pod_wash": wash_held, **{"acceptance_" + p: h for p, h in accept_held.items()}}
     for held_at in held.values():
         kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], held_at["gru_max_abs_err"])
+    for held_at in list(surface_held.values()):
+        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], held_at["gru_max_abs_err"])
     kernels[0]["held_on"] = dict({"process_chunk": kernels[0]["shape"],
                                   "Koala.enhance": floor_single["shape"],
                                   "train_on_device": floor_train["shape"]},
-                                 **{p: h["floor_shape"] for p, h in held.items()})
+                                 **{p: h["floor_shape"] for p, h in held.items()},
+                                 surface_snapshot={c: h["floor_shape"]
+                                                   for c, h in surface_held.items()})
     kernels[1]["held_on"] = dict({"process_chunk": kernels[1]["shape"],
                                   "Koala.enhance": gru_single["shape"]},
-                                 **{p: h["gru_shape"] for p, h in held.items()})
-    kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], accept_fused["max_abs_err"])
+                                 **{p: h["gru_shape"] for p, h in held.items()},
+                                 surface_snapshot={c: h["gru_shape"]
+                                                   for c, h in surface_held.items()})
+    kernels[3]["max_abs_err"] = max([kernels[3]["max_abs_err"], accept_fused["max_abs_err"]]
+                                    + [h["max_abs_err"] for h in surface_fused.values()])
     kernels[3]["held_on"] = {"enhance": kernels[3]["shape"],
-                             "acceptance_enhance": accept_fused["shape"]}
+                             "acceptance_enhance": accept_fused["shape"],
+                             "surface_snapshot": {c: h["shape"]
+                                                  for c, h in surface_fused.items()}}
 
     # ---- 9. the GRU kernel's gate: models with a launch plan, and one without
     s = time.perf_counter()
@@ -2146,7 +2862,8 @@ def main() -> None:
                        "bench_sweep": sweep_counts["floor_scan"],
                        "pod_wash": wash_counts["floor_scan"],
                        "gate_phase": gate_counts["floor_scan"],
-                       "acceptance": accept_counts["floor_scan"]},
+                       "acceptance": accept_counts["floor_scan"],
+                       "surface": surface_counts["floor_scan"]},
         "gru_stack": {"process_chunk": launches["gru_stack"],
                       "Koala.enhance": single_counts["gru_stack"],
                       "server_backlog": backlog_counts["gru_stack"],
@@ -2154,18 +2871,21 @@ def main() -> None:
                       "bench_sweep": sweep_counts["gru_stack"],
                       "pod_wash": wash_counts["gru_stack"],
                       "gate_phase": gate_counts["gru_stack"],
-                      "acceptance": accept_counts["gru_stack"]},
+                      "acceptance": accept_counts["gru_stack"],
+                      "surface": surface_counts["gru_stack"]},
         "gru_stack_hs": {"train_on_device": hs_entry["launches"],
                          "data_parallel_step": dp_counts["gru_stack_hs"],
                          "gate_phase": gate_counts["gru_stack_hs"],
-                         "acceptance": accept_counts["gru_stack_hs"]},
+                         "acceptance": accept_counts["gru_stack_hs"],
+                         "surface": surface_counts["gru_stack_hs"]},
         "engine_fused": {"enhance": launches["engine_fused"],
                          "corpus_runner": corpus_counts["engine_fused"],
                          "bench": bench_counts["engine_fused"],
                          "bench_sweep": sweep_counts["engine_fused"],
                          "pod_wash": wash_counts["engine_fused"],
                          "gate_phase": gate_counts["engine_fused"],
-                         "acceptance": accept_counts["engine_fused"]},
+                         "acceptance": accept_counts["engine_fused"],
+                         "surface": surface_counts["engine_fused"]},
     }
     for kr in kernels:
         kr["launches_by_path"] = by_path[kr["name"]]
@@ -2190,9 +2910,9 @@ def main() -> None:
     k.delete()
     kb.delete()
     print("chip_smoke: %.1f s from the build on, of which one stream's enhance %.1f s, "
-          "acceptance %.1f s, bench %.1f s, bench_sweep %.1f s, pod_wash %.1f s, gate %.1f s, "
-          "demo %.1f s, generators %.1f s"
-          % (time.perf_counter() - t0, single_s, accept_s, phase_s["bench"],
+          "acceptance %.1f s, surface %.1f s, bench %.1f s, bench_sweep %.1f s, pod_wash %.1f s, "
+          "gate %.1f s, demo %.1f s, generators %.1f s"
+          % (time.perf_counter() - t0, single_s, accept_s, surface_s, phase_s["bench"],
              phase_s["bench_sweep"], phase_s["pod_wash"], phase_s["gate"], phase_s["demo"],
              phase_s["generators"]))
 

@@ -1,7 +1,7 @@
 """Minimum-statistics floor tracker: CUDA kernel and its plain version.
 
 ``floor_scan`` replaces the JAX package's TPU kernel ``floor_scan_pallas``
-(ops/pallas/floor.py:43, kernel body :36):
+(ops/pallas/floor.py:44, kernel body :36):
 
     floor[t] = min(floor[t-1] + rise, lb[t])    over lb [T, B, nb] f32
 

@@ -1,7 +1,7 @@
 """Fused GRU-stack recurrence: CUDA kernel, its plain version, its gradient.
 
 ``gru_stack`` replaces the JAX package's TPU kernel ``gru_stack_pallas``
-(ops/pallas/gru.py:103, kernel body :60) in both of its traced variants.
+(ops/pallas/gru.py:104, kernel body :60) in both of its traced variants.
 Per step and layer, with x_0 = x[t] (bf16):
 
     xp = bf16(x_l) @ wx_l + bx_l,  hp = bf16(h_l) @ wh_l + bh_l   (f32 sums)

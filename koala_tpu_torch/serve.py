@@ -46,7 +46,7 @@ import os
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -187,6 +187,7 @@ class StreamingServer:
         self._engine = engine
 
         self._pool = StreamPool(num_streams, FRAME_LENGTH, capacity_frames)
+        self._capacity_frames = capacity_frames
         # output rings absorb the client's pull cadence; overflow drops
         # (counted) rather than blocking the dispatch thread
         out_cap = out_capacity_frames or max(4 * capacity_frames, 4 * chunk_frames)
@@ -260,6 +261,20 @@ class StreamingServer:
     def push(self, stream: int, samples: np.ndarray) -> bool:
         """Append int16 samples to a stream. False on ring overflow."""
         return self._pool.push(stream, samples)
+
+    def push_all(self, stream: int, samples: np.ndarray, wait: Callable[[], None]) -> None:
+        """Append whole frames of int16 samples to a stream as its input
+        ring takes them, calling ``wait()`` while the ring is full. For a
+        producer that must not lose audio, as ``push`` drops what overflows:
+        a network front whose client sends faster than the server runs."""
+        frames = np.asarray(samples, np.int16).reshape(-1, FRAME_LENGTH)
+        while len(frames):
+            room = self._capacity_frames - self._pool.frames_ready(stream)
+            if room > 0:
+                self._pool.push(stream, frames[:room].reshape(-1))
+                frames = frames[room:]
+            else:
+                wait()
 
     def push_block(self, rows: np.ndarray, counts: np.ndarray,
                    first_stream: int = 0) -> int:

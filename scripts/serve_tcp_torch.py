@@ -61,6 +61,14 @@ def handle_client(conn, addr, server, stream_id):
                 else:
                     time.sleep(0.002)
 
+        def drain():
+            """While the stream's input ring is full: send what is ready, and
+            read nothing, so TCP's flow control holds a client that sends
+            faster than the server runs (its audio is not dropped)."""
+            pump_out()
+            time.sleep(0.002)
+
+
         while True:
             data = conn.recv(65536)
             if not data:
@@ -70,7 +78,7 @@ def handle_client(conn, addr, server, stream_id):
             if n_frames:
                 samples = np.frombuffer(buf[:n_frames * frame_bytes], dtype="<i2")
                 buf = buf[n_frames * frame_bytes:]
-                server.push(stream_id, samples)
+                server.push_all(stream_id, samples, drain)
                 received += len(samples)
             pump_out()
 
@@ -80,10 +88,10 @@ def handle_client(conn, addr, server, stream_id):
             part = np.frombuffer(buf, dtype="<i2")
             tail = np.zeros(FRAME_LENGTH, np.int16)
             tail[:len(part)] = part
-            server.push(stream_id, tail)
+            server.push_all(stream_id, tail, drain)
             received += len(part)
         flush_frames = -(-server.delay_sample // FRAME_LENGTH) + 1
-        server.push(stream_id, np.zeros(flush_frames * FRAME_LENGTH, np.int16))
+        server.push_all(stream_id, np.zeros(flush_frames * FRAME_LENGTH, np.int16), drain)
         pump_out(until=received)
     except (ConnectionError, BrokenPipeError):
         pass

@@ -21,6 +21,7 @@ import os
 import socket
 import sys
 import threading
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -44,7 +45,6 @@ def ws_client(conn, server, stream_id):
 
     def pump(until=None):
         nonlocal to_drop, sent
-        import time as _t
         while True:
             out = server.pull(stream_id)
             if len(out):
@@ -60,7 +60,15 @@ def ws_client(conn, server, stream_id):
             elif until is None or sent >= until:
                 return
             else:
-                _t.sleep(0.002)
+                time.sleep(0.002)
+
+    def drain():
+        """While the stream's input ring is full: send what is ready, and
+        read nothing, so TCP's flow control holds a client that sends faster
+        than the server runs (its audio is not dropped)."""
+        pump()
+        time.sleep(0.002)
+
 
     try:
         while True:
@@ -75,11 +83,11 @@ def ws_client(conn, server, stream_id):
                     part = np.frombuffer(buf, dtype="<i2")
                     tail = np.zeros(FRAME_LENGTH, np.int16)
                     tail[:len(part)] = part
-                    server.push(stream_id, tail)
+                    server.push_all(stream_id, tail, drain)
                     received += len(part)
                     buf = b""
                 flush = -(-server.delay_sample // FRAME_LENGTH) + 1
-                server.push(stream_id, np.zeros(flush * FRAME_LENGTH, np.int16))
+                server.push_all(stream_id, np.zeros(flush * FRAME_LENGTH, np.int16), drain)
                 pump(until=received)
                 send_frame(conn, b"done", OP_TEXT)
                 continue
@@ -90,7 +98,7 @@ def ws_client(conn, server, stream_id):
             if n_frames:
                 samples = np.frombuffer(buf[:n_frames * frame_bytes], dtype="<i2")
                 buf = buf[n_frames * frame_bytes:]
-                server.push(stream_id, samples)
+                server.push_all(stream_id, samples, drain)
                 received += len(samples)
             pump()
     except (ConnectionError, BrokenPipeError, OSError):

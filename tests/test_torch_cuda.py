@@ -467,6 +467,45 @@ def test_single_stream_enhance_launches_the_kernels(cuda_device, monkeypatch):
     assert snr_db(want.astype(np.float64), out.astype(np.float64)) > 35.0
 
 
+
+@pytest.mark.cuda
+def test_mmse_process_chunk_on_the_card(cuda_device, tmp_path):
+    """The mmse model (no kernel on the TPU either) through ``process_chunk``
+    on the card: >= 35 dB from the port on the CPU, no port kernel launched."""
+    from koala_tpu_torch.models import mmse
+
+    path = str(tmp_path / "mmse.pv")
+    params_io.save_params(path, mmse.init_params(), mmse.DEFAULT_CONFIG)
+    rng = np.random.default_rng(6)
+    pcm = (rng.standard_normal((3, 40 * 256)) * 3000).astype(np.int16)
+    kb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=3, model_path=path, device="gpu")
+    counts = (floor.launches, gru.launches, gru.launches_hs, engine_fused.launches)
+    out = kb.process_chunk(pcm)
+    assert (floor.launches, gru.launches, gru.launches_hs, engine_fused.launches) == counts
+    cpu = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=3, model_path=path, device="cpu")
+    want = cpu.process_chunk(pcm)
+    assert out.shape == want.shape == pcm.shape
+    for i in range(3):
+        assert snr_db(want[i].astype(np.float64), out[i].astype(np.float64)) > 35.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["process_chunk", "enhance"])
+def test_card_snapshot_resumes_bit_for_bit(cuda_device, mode):
+    """A stream cut at frame 16 on the card: its snapshot (host numpy)
+    resumes a fresh card instance with the bits of the uninterrupted one."""
+    rng = np.random.default_rng(7)
+    pcm = (rng.standard_normal((3, 40 * 256)) * 3000).astype(np.int16)
+    kb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=3, device="gpu")
+    run = getattr(kb, mode)
+    run(pcm[:, :16 * 256])
+    snap = kb.save_state()
+    want = run(pcm[:, 16 * 256:])
+    fresh = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=3, device="gpu")
+    fresh.load_state(snap)
+    assert all(v.dtype == np.float32 for v in snap.values())
+    np.testing.assert_array_equal(getattr(fresh, mode)(pcm[:, 16 * 256:]), want)
+
 def _pull_frames(server, streams, frames, timeout=60.0):
     import time
 

@@ -219,12 +219,12 @@ def _ws_recv(conn):
     return hdr[0] & 0x0F, (_recv_exact(conn, length) if length else b"") or b""
 
 
-def test_websocket_round_trip_matches_direct_engine(web_port, rng):
-    n = FRAME_LENGTH * 40
-    pcm = (rng.standard_normal(n) * 3000).astype(np.int16)
-    conn = _ws_connect(web_port + 1)
+def _through_websocket(port, pcm):
+    """``pcm`` through the WebSocket protocol in messages of 16 frames, then
+    "eof"; returns the binary replies up to "done"."""
+    conn = _ws_connect(port)
     try:
-        for i in range(0, n, FRAME_LENGTH * 16):
+        for i in range(0, len(pcm), FRAME_LENGTH * 16):
             _ws_send(conn, pcm[i:i + FRAME_LENGTH * 16].astype("<i2").tobytes())
         _ws_send(conn, b"eof", opcode=1)
         out = b""
@@ -239,7 +239,25 @@ def test_websocket_round_trip_matches_direct_engine(web_port, rng):
                 break
     finally:
         conn.close()
-    _assert_lsb(np.frombuffer(out, dtype="<i2"), _direct(pcm))
+    return np.frombuffer(out, dtype="<i2")
+
+
+def test_websocket_round_trip_matches_direct_engine(web_port, rng):
+    n = FRAME_LENGTH * 40
+    pcm = (rng.standard_normal(n) * 3000).astype(np.int16)
+    _assert_lsb(_through_websocket(web_port + 1, pcm), _direct(pcm))
+
+
+@pytest.mark.parametrize("front", ["tcp", "websocket"])
+def test_front_takes_a_stream_longer_than_its_ring(front, tcp_port, web_port, rng):
+    """A client that sends a whole file at once, longer than a stream's input
+    ring (256 frames): the front waits for room instead of dropping audio,
+    so the reply is whole and within 2 LSB of the engine (it hung at EOF,
+    waiting for output of the audio its full ring had dropped)."""
+    pcm = _speech_like(300 * FRAME_LENGTH + 77, rng)
+    out = _through_tcp(tcp_port, pcm) if front == "tcp" else _through_websocket(web_port + 1, pcm)
+    assert out.shape == pcm.shape
+    _assert_lsb(out, _direct(pcm))
 
 
 def test_http_serves_the_demo_page(web_port):
