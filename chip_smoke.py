@@ -6,9 +6,10 @@
    prints the build time, the card's name and its power limit.
 2. Drives the port's main path on the bundled model through the public entry
    points, each path with the kernels' launch counters set to 0 just before
-   it and read just after: ``Koala.process`` (per-frame, no kernel),
-   ``KoalaBatch.process_chunk`` (floor + GRU kernels) and
-   ``KoalaBatch.enhance`` (the fused engine's kernels), at B = 64 streams of
+   it and read just after: ``Koala.process`` (per-frame: the GRU kernel at
+   T = 1 and the fixed-order products), ``KoalaBatch.process_chunk`` (floor
+   + GRU kernels) and ``KoalaBatch.enhance`` (the fused engine's kernels),
+   every path's frame-local products through ``rowmm``, at B = 64 streams of
    6.0 s (T = 376 hops). Checks the delay contract, reset reproducing a fresh
    stream bit for bit, and ``process_chunk`` and ``enhance`` on the card
    against the port on the CPU for two streams (>= 35 dB). One stream's
@@ -24,28 +25,42 @@
    to 0 just before it and read just after: ``KoalaBatch.process_chunk`` at
    B = 21 (floor + GRU kernels), ``KoalaBatch.enhance`` at B = 21 (the fused
    entry), ``Koala.enhance`` one stream at a time (floor + GRU at a batch of
-   one) and ``KoalaBatch.process`` frame by frame (the eager step, no
-   kernel). No plain version may run on the first three; each path's worst
+   one) and ``KoalaBatch.process`` frame by frame (the eager step: the GRU
+   kernel at T = 1). No plain version may run on any of them; each path's worst
    parity, lowest SI-SDR gain and worst STOI regression are printed beside
    the CPU port's ``evaluate``. With ``KOALA_REFERENCE_SAMPLES`` the
    reference pair and its 8 pseudo-real variants join the sets.
 2d. The rest of the public surface, each part with its lines (``surface
-   ...``): the mmse model (no kernel, as on the TPU) through
+   ...``): the mmse model (no kernel of its own, as on the TPU; its STFT
+   products through ``rowmm``) through
    ``Koala.process``, ``Koala.enhance``, ``KoalaBatch.process``,
    ``process_chunk``, ``enhance`` (the mix at B = 64 and the battery at
    B = 21) and the StreamingServer (16 streams, backlog and live), each
-   >= 35 dB from the port on the CPU with no kernel launched and no plain
-   version called (a traced call's device launches printed), timed, and the
+   >= 35 dB from the port on the CPU with no kernel but ``rowmm`` launched
+   and no plain version called (a traced call's device launches printed,
+   its port kernels ``rowmm``'s launches), timed, and the
    battery scored beside the CPU port's ``evaluate``; the identity model
    through ``create`` / ``create_batch`` (a 256-sample delay, and enhance
-   the input itself, bit for bit); snapshots cut at frame 192 for the
+   the input itself, bit for bit, no kernel but ``rowmm``); snapshots cut at
+   frame 192 for the
    bundled model and mmse at B = 21 and 64, after ``process_chunk`` and
    after ``enhance``, resumed in a fresh card instance (bit for bit), on the
    CPU and back on the card from the CPU's (>= 35 dB), the kernels held
    against their plain versions on the resumed halves' inputs; and the 21
    battery streams through ``scripts/serve_web_torch.py --device best`` over
-   the WebSocket protocol, within the server tests' 2-LSB tolerance (3 LSB on
-   at most one sample in 1000) of a server's backlog run.
+   the WebSocket protocol, bit for bit a server's backlog run.
+2e. A stream's output does not depend on how it is cut into calls (``cuts
+   ...`` lines): the bundled model on the battery (B = 21 x 365) and on the
+   mix (B = 64 x 376), and mmse on the battery, each held bit for bit to one
+   ``process_chunk`` call over the whole streams: the StreamingServer's
+   backlog in rounds of 32 and of 8 frames, its single-frame rounds (the
+   captured step graph) and its live rounds (a frame a stream every 16 ms),
+   T ``KoalaBatch.process`` calls, ``Koala.process`` frame by frame on 3 of
+   the streams and one stream's ``Koala.enhance``. Each part prints, for
+   each way, the largest difference in LSB and the samples that differ, the
+   launches (an eager step launches the GRU kernel once where the model has
+   a launch plan), no plain-version call, ``Koala.process`` p50 / p90 a
+   frame, the server's live p50 / p90 and ``process_chunk``'s median time.
 3. Holds each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it: floor bit-identical, GRU within its stated
    tolerance, fused >= 40 dB, chunked equal to continuous and launch equal to
@@ -59,7 +74,14 @@
    in its wider layouts: 512 x 3 in two layer groups, 256 x 17 in three with
    units spilled into shared memory;
    two launches must give the same bits, a sequence in two chunks the bits
-   of one run, and the plan's shared-memory size must be the kernel's.
+   of one run, and the plan's shared-memory size must be the kernel's; on
+   the step's inputs (``Koala.process``: T = 1, a batch of one) it is held
+   and timed too, a loop of launches and queued behind a spin kernel.
+   The fixed-order product ``rowmm`` is held on the inputs of each of the
+   nine products of ``process_chunk``'s call (K and N of each), at M = 1,
+   21, 64, 8 x 21, 365 x 21 and 376 x 64 rows, within a relative 1e-5 of
+   its plain version, and a row must have the same bits at every M and at
+   several places in a tile.
    Times kernel, plain version and (where one exists) a library call with
    CUDA events after warm-up, computes each kernel's bound from its shapes
    and the card's published peaks and, for the GRU kernel, times its chain
@@ -136,8 +158,10 @@
 11. ``scripts/make_corpus_torch.py`` (small tapes, the whole dev battery)
    and ``scripts/make_fixtures_torch.py`` into a temporary directory, twice:
    byte-identical runs, every WAV 93680 samples.
-12. Prints one ``{"kernels": [...]}`` line (each kernel's launches by path
-   and in all), the card's name and power limit, and, last,
+12. Prints one ``{"kernels": [...]}`` line (five entries: each kernel's
+   launches by path and in all; ``rowmm``'s times are the sum over the nine
+   products at 376 x 64 rows, beside ``torch.matmul``'s), the card's name
+   and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero. Without a CUDA card, or without the
@@ -205,14 +229,25 @@ SURFACE_REPS = 5               # the surface phase's timed calls, after one to w
 SURFACE_CUT = 192              # its snapshots' cut, in frames (a multiple of 8: enhance's plan)
 SURFACE_SERVER_STREAMS = 16    # its mmse server's streams
 SURFACE_LIVE_S = 2.0           # ... and their live cadence
-# the WebSocket replies against a server's backlog run: the server tests'
-# tolerance between two ways through the server (tests/torch_ref.py
-# assert_near_jax): at most 3 LSB, and past 2 LSB on at most one sample in
-# 1000 of a stream (or 2). The front's rounds fall as its clients' messages
-# arrive, and on the card two ways of cutting one stream into rounds part by
-# up to 4-10 LSB (ROADMAP.md section 3); a single client's TCP round trip
-# keeps the backlog run's rounds and is held to 2 LSB
-WS_LSB = (3, 1000)
+# the WebSocket replies against a server's backlog run, in LSB: the front's
+# rounds fall as its clients' messages arrive, and a stream's output does
+# not depend on how it is cut into rounds (the cuts phase)
+WS_LSB = 0
+# the fixed-order product against its plain version: max |diff| over the
+# largest element of the plain result (float32 sums of up to 512 products in
+# another order)
+ROWMM_REL = 1e-5
+# the rows at which it is held: one stream's frame, the battery's 21 streams,
+# the main path's 64, a round of 8 frames of the battery, the battery's 365
+# frames in one call, the main path's 376 x 64
+ROWMM_ROWS = (1, 21, 64, 8 * 21, 365 * 21, 376 * 64)
+# (K, N) of the nine products of a process_chunk call, in their order
+ROWMM_SITES = (("stft_re", 512, 257), ("stft_im", 512, 257), ("band", 257, 32),
+               ("cep", 257, 161), ("encoder", 329, 384), ("decoder", 384, 257),
+               ("gate", 384, 1), ("istft_re", 257, 512), ("istft_im", 257, 512))
+CUTS_STREAMS = 3               # the cuts phase's Koala.process streams
+CUTS_LIVE_S = 2.0              # ... and its servers' live cadence
+CUTS_CHUNK_REPS = 5            # ... and its timed process_chunk calls
 
 
 def fail(msg: str) -> None:
@@ -264,6 +299,19 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class RecordAll(Recorder):
+    """A ``Recorder`` that keeps a copy of the arguments of every call."""
+
+    def __enter__(self):
+        self.calls = []
+
+        def wrapped(*args, **kwargs):
+            self.calls.append(clone(args))
+            return self.orig(*args, **kwargs)
+        setattr(self.module, self.name, wrapped)
+        return self
 
 
 def mix_streams(n: int) -> np.ndarray:
@@ -498,6 +546,112 @@ def fused_shape_checks(engine_fused, engine, params, cfg, dev):
                 fail("fused kernels: two segments differ from two calls cut elsewhere")
             print("fused: %d + %d hops in two segments equal [0:40]+[40:%d] in two calls, bit "
                   "for bit" % (crossing - 5, 5, t_len))
+
+
+def gru_step_hold(gru, args, card):
+    """The GRU kernel on the inputs of the step's first launch (``Koala.process``:
+    x [1, 1, H], a batch of one), against its plain version (within
+    ``GRU_MAX_ABS``), and its time a launch: a loop on an idle card and
+    queued behind a spin kernel (the card's time)."""
+    from koala_tpu_torch.profiling import time_ms
+
+    h0, x, wx, bx, wh, bh = args
+    with torch.inference_mode():
+        ky, kh = gru.gru_stack(h0, x, wx, bx, wh, bh)
+        ry, rh = gru.gru_stack_ref(h0, x, wx, bx, wh, bh)
+        torch.cuda.synchronize()
+        err = max(float((ky.float() - ry.float()).abs().max()), float((kh - rh).abs().max()))
+        if err > GRU_MAX_ABS:
+            fail("GRU kernel at T = 1 is %g from its plain version on the step's inputs" % err)
+        held = {"shape": list(x.shape) + [h0.shape[0]], "max_abs_err": err,
+                "ms": time_ms(lambda: gru.gru_stack(h0, x, wx, bx, wh, bh), 50),
+                "queued_ms": time_ms(lambda: gru.gru_stack(h0, x, wx, bx, wh, bh), 50, 5,
+                                     queued=True)}
+    print("gru at the step's shape x %s (Koala.process): max|err| %.4g from its plain version; "
+          "%.4f ms a launch, %.4f ms queued on %s"
+          % (list(x.shape), err, held["ms"], held["queued_ms"], card))
+    return held
+
+
+def rowmm_hold(rowmm, calls, card):
+    """The fixed-order product on the inputs of the nine products of one
+    process_chunk call (``calls``, in ``ROWMM_SITES``' order), at each of
+    ``ROWMM_ROWS``' row counts: within ``ROWMM_REL`` of its plain version,
+    and a row's bits the same at every row count and at several places in a
+    64-row tile. Times the nine at the call's rows: the kernel, its plain
+    version and ``torch.matmul`` (cuBLAS, the same function, used nowhere in
+    the port), each the sum over the nine, and their bound; and the kernel
+    and ``torch.matmul`` at one row (the step of ``Koala.process``), queued
+    behind a spin kernel (the card's time). Returns the kernel's entry of the
+    ``{"kernels": ...}`` line."""
+    from koala_tpu_torch.profiling import time_ms
+
+    if [tuple(b.shape) for _, b in calls] != [(k, n) for _, k, n in ROWMM_SITES]:
+        fail("process_chunk's products were %s, not %s"
+             % ([tuple(b.shape) for _, b in calls], [s[1:] for s in ROWMM_SITES]))
+    sites, rel, err = {}, 0.0, 0.0
+    for (name, k, n), (a, b) in zip(ROWMM_SITES, calls):
+        a = a.reshape(-1, k)
+        m_all = a.shape[0]
+        with torch.inference_mode():
+            full = rowmm.rowmm(a, b)
+            for m in ROWMM_ROWS:
+                part = a[:m]
+                got, want = rowmm.rowmm(part, b), rowmm.rowmm_ref(part, b)
+                torch.cuda.synchronize()
+                diff = float((got - want).abs().max())
+                rel = max(rel, diff / max(float(want.abs().max()), 1e-30))
+                err = max(err, diff)
+                for start in (0, 5, 63, 81, m_all - m):
+                    if start + m <= m_all and not torch.equal(
+                            rowmm.rowmm(a[start:start + m].contiguous(), b),
+                            full[start:start + m]):
+                        fail("rowmm %s: rows %d:%d of a call of %d rows differ from the same "
+                             "rows of a call of %d" % (name, start, start + m, m, m_all))
+        if rel > ROWMM_REL:
+            fail("rowmm %s is %.3g from its plain version (relative; limit %g)"
+                 % (name, rel, ROWMM_REL))
+        bound = rowmm.bound(m_all, k, n)
+        with torch.inference_mode():
+            sites[name] = {
+                "shape": [m_all, k, n],
+                "ms": time_ms(lambda: rowmm.rowmm(a, b), 20),
+                "plain_ms": time_ms(lambda: rowmm.rowmm_ref(a, b), 2, 1),
+                "library_ms": time_ms(lambda: torch.matmul(a, b), 20),
+                "bound_ms": max(bound.values()), "bytes_ms": bound["bytes"],
+                "operations_ms": bound["operations"],
+                "one_row_queued_ms": time_ms(lambda: rowmm.rowmm(a[:1], b), 50, 5, queued=True),
+                "one_row_library_queued_ms": time_ms(lambda: torch.matmul(a[:1], b), 50, 5,
+                                                     queued=True)}
+    total = {key: sum(v[key] for v in sites.values())
+             for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "operations_ms",
+                         "one_row_queued_ms", "one_row_library_queued_ms")}
+    m_all = calls[0][0].reshape(-1, 512).shape[0]
+    print("rowmm: within %.3g (relative) of its plain version at M = %s on the nine products of "
+          "process_chunk (largest |diff| %.3g); a row's bits the same at every M and place in "
+          "a tile; the nine at M = %d: %.4f ms (plain %.4f, torch.matmul %.4f, bound %.4f ms); "
+          "at M = 1 (the step) %.4f ms queued (torch.matmul %.4f) on %s"
+          % (rel, list(ROWMM_ROWS), err, m_all, total["ms"], total["plain_ms"],
+             total["library_ms"], max(total["bytes_ms"], total["operations_ms"]),
+             total["one_row_queued_ms"], total["one_row_library_queued_ms"], card))
+    for name, v in sites.items():
+        print("  rowmm %-8s [%d, %d] @ [%d, %d]: %.4f ms, torch.matmul %.4f ms, bound %.4f ms; "
+              "one row %.4f ms queued, torch.matmul %.4f"
+              % (name, v["shape"][0], v["shape"][1], v["shape"][1], v["shape"][2], v["ms"],
+                 v["library_ms"], v["bound_ms"], v["one_row_queued_ms"],
+                 v["one_row_library_queued_ms"]))
+    return {
+        "name": "rowmm", "route": "cuda", "source": "koala_tpu_torch/csrc/rowmm.cu",
+        "replaces": "none: the jnp matmuls outside any Pallas kernel "
+                    "(koala_tpu/ops/stft.py:138, koala_tpu/models/mask_gru.py:205)",
+        "launches": 0, "max_abs_err": err, "max_rel_err": rel,
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": max(total["bytes_ms"], total["operations_ms"]),
+        "bound_by": "bytes" if total["bytes_ms"] > total["operations_ms"] else "operations",
+        "library_ms": total["library_ms"], "shape": [v["shape"] for v in sites.values()],
+        "one_row_queued_ms": total["one_row_queued_ms"],
+        "one_row_library_queued_ms": total["one_row_library_queued_ms"],
+        "held_at_rows": list(ROWMM_ROWS), "sites": sites}
 
 
 def grad_agreement(name, got, want):
@@ -831,13 +985,17 @@ def pull_all(srv, n_streams, frames, deadline_s=120.0):
 
 class PlainCalls:
     """Counts the calls of the kernels' plain versions (the floor's, the
-    GRU's with the scan branch's step, the fused entry's) while installed."""
+    GRU's with the scan branch's step, the fused entry's, the fixed-order
+    product's) and of ``torch.matmul`` (the products' route where autograd
+    records a graph) while installed."""
 
     NAMES = (("koala_tpu_torch.models.mask_gru", "floor_scan_ref"),
              ("koala_tpu_torch.models.mask_gru", "_gru_recurrent"),
              ("koala_tpu_torch.ops.kernels.floor", "floor_scan_ref"),
              ("koala_tpu_torch.ops.kernels.gru", "gru_stack_ref"),
-             ("koala_tpu_torch.ops.kernels.engine_fused", "fused_sequence_ref"))
+             ("koala_tpu_torch.ops.kernels.engine_fused", "fused_sequence_ref"),
+             ("koala_tpu_torch.ops.kernels.rowmm", "rowmm_ref"),
+             ("torch", "matmul"))
 
     def __enter__(self):
         self.calls, self.orig = 0, []
@@ -1037,9 +1195,9 @@ def acceptance_phase(kt, dev, card, reset_counts, counts):
        a workspace segment), and the floor and GRU kernels on the tail hops.
     3. ``Koala.enhance`` one stream at a time: the floor and GRU kernels at a
        batch of one, once each a stream.
-    4. ``KoalaBatch.process`` frame by frame at B = 21: the eager step, plain
-       by design, no kernel.
-    Paths 1-3 call no plain version, and every kernel they launch is held
+    4. ``KoalaBatch.process`` frame by frame at B = 21: the eager step, the
+       GRU kernel once a frame (at T = 1).
+    No path calls a plain version, and every kernel that 1-3 launch is held
     against its plain version on the inputs the path gave it: the floor and
     GRU kernels on 1, 3 and 2's tail, the fused entry on 2. Each set is
     scored by ``harness_results`` (delay 256 on the delayed paths 1 and 4, 0
@@ -1127,7 +1285,7 @@ def acceptance_phase(kt, dev, card, reset_counts, counts):
             "enhance": dict(floor_scan=int(tail > 0), gru_stack=int(tail > 0), engine_fused=1,
                             engine_fused_device=len(engine_fused.STAGES) * segments),
             "Koala.enhance": dict(floor_scan=nb, gru_stack=nb, engine_fused=0),
-            "process": dict(floor_scan=0, gru_stack=0, engine_fused=0)}
+            "process": dict(floor_scan=0, gru_stack=width // 256, engine_fused=0)}
     cpu_fig = {n: figures(r) for n, r in on_cpu.items()}
     summary, failed = {}, []
     for path, (out, delay, got, plain_calls, wall) in runs.items():
@@ -1153,7 +1311,7 @@ def acceptance_phase(kt, dev, card, reset_counts, counts):
                                          fig[n][2], cpu_fig[n][2]))
         ok = gates.check_gates(results, allow_known_gaps=True)
         if not (all(got[key] == v for key, v in want[path].items()) and not got["gru_stack_hs"]
-                and (path == "process" or plain_calls == 0)):
+                and got["rowmm"] > 0 and plain_calls == 0):
             failed.append("%s launched %s with %d plain-version calls, expected %s"
                           % (path, got, plain_calls, want[path]))
         if not ok:
@@ -1171,7 +1329,7 @@ def acceptance_phase(kt, dev, card, reset_counts, counts):
     if failed:
         fail("acceptance: " + "; ".join(failed))
     launches = {key: sum(runs[p][2][key] for p in runs)
-                for key in ("floor_scan", "gru_stack", "gru_stack_hs", "engine_fused")}
+                for key in ("floor_scan", "gru_stack", "gru_stack_hs", "engine_fused", "rowmm")}
     return launches, held, fused_held
 
 
@@ -1717,7 +1875,8 @@ def gate_phase(kt, dev, card, reset_counts, counts):
 
     trainer = importlib.import_module("koala_tpu_torch.train.train")
     pcm = mix_streams(GATE_T * 256)
-    launched = {"floor_scan": 0, "gru_stack": 0, "gru_stack_hs": 0, "engine_fused": 0}
+    launched = {"floor_scan": 0, "gru_stack": 0, "gru_stack_hs": 0, "engine_fused": 0,
+                "rowmm": 0}
     watch = WarningCount()
     logging.getLogger("koala_tpu_torch").addHandler(watch)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1860,22 +2019,36 @@ def card_vs_cpu(got, want):
             int(diff.max()), float(np.count_nonzero(diff > 2) / diff.size))
 
 
+def only_rowmm(launched) -> bool:
+    """Whether the only counted kernel in ``launched`` was the fixed-order
+    product, which did launch."""
+    return launched["rowmm"] > 0 and not any(v for k, v in launched.items() if k != "rowmm")
+
+
 def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
-    """Part 1 of the surface phase: the mmse model (no kernel, on the TPU
-    either) through every entry point on the card. Each path's output is
-    held to the port on the CPU on the same input (>= CHUNK_SNR_DB over all
-    its streams); its census is one traced call (device launches, none of
-    them the port's kernels) and its counters and plain-version calls are
-    read over its timed calls (all 0); the timed calls follow one to warm up
+    """Part 1 of the surface phase: the mmse model (no kernel of its own, on
+    the TPU either; its STFT products through ``rowmm``) through every entry
+    point on the card. Each path's output is held to the port on the CPU on
+    the same input (>= CHUNK_SNR_DB over all its streams); its census is one
+    traced call (device launches, of the port's kernels only ``rowmm``'s)
+    and its counters and plain-version calls are read over its timed calls
+    (only ``rowmm``, no plain call); the timed calls follow one to warm up
     (``SURFACE_REPS`` of them, the per-frame paths one pass of a stream).
     The battery paths are scored by the harness beside the CPU port's
     ``evaluate`` for the record. Returns (failures, summary)."""
     from koala_tpu_torch.constants import DELAY_SAMPLE
     from koala_tpu_torch.models import params_io
+    from koala_tpu_torch.ops.kernels import rowmm
     from koala_tpu_torch.serve import StreamingServer
     from koala_tpu_torch.train.evaluate import evaluate, harness_results
 
     sets, streams, battery = bat
+
+    def traced(fn):
+        """device_launches of ``fn``, and rowmm's launches in it."""
+        before = rowmm.launches
+        total, port = device_launches(fn)
+        return total, port, rowmm.launches - before
     names, lens = list(sets), [len(x) for x in streams]
     mix = pcm[:, :T * 256]
     failures, summary, scored = [], {}, {}
@@ -1943,7 +2116,7 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
         census_call(inst)                       # warm-up (lazy set-up)
         inst.reset()
         s = time.perf_counter()
-        launches, port = device_launches(lambda: census_call(inst))
+        launches, port, port_want = traced(lambda: census_call(inst))
         census_s = time.perf_counter() - s
         runs, out = [], None
         torch.cuda.synchronize()
@@ -1982,10 +2155,10 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
               "trace %.1f s)" % (name, label, db, least, lsb, share, launches, port, launched,
                                 plain.calls, timing, card, time.perf_counter() - started,
                                 census_s))
-        if db < CHUNK_SNR_DB or any(launched.values()) or plain.calls or port:
+        if db < CHUNK_SNR_DB or not only_rowmm(launched) or plain.calls or port != port_want:
             failures.append("mmse %s (%s): %.2f dB from the CPU, counters %s, %d plain calls, "
-                            "%d port kernels traced" % (name, label, db, launched, plain.calls,
-                                                        port))
+                            "%d port kernels traced for %d rowmm launches"
+                            % (name, label, db, launched, plain.calls, port, port_want))
         if delay is not None:
             scored[key] = {n: figures(harness_results(
                 *sets[n], *(out[3 * i + j, :lens[3 * i + j]] for j in range(3)), delay=delay))
@@ -2022,7 +2195,7 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
         warm.push_block(rows[:, SERVE_CHUNK:2 * SERVE_CHUNK], np.full(n_srv, SERVE_CHUNK, np.int32))
         pull_all(warm, n_srv, SERVE_CHUNK)
 
-    launches, port = device_launches(one_round)
+    launches, port, port_want = traced(one_round)
     per_round = launches / max(1, warm.stats["device_steps"] - steps)
     warm.close()
     srv = server()
@@ -2047,7 +2220,7 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
     summary["StreamingServer backlog"] = {"audio_s_per_s": n_srv * T * 256 / 16000.0 / wall,
                                           "db": db, "max_lsb": lsb,
                                           "device_launches_per_round": per_round}
-    if db < CHUNK_SNR_DB or any(launched.values()) or plain.calls or port \
+    if db < CHUNK_SNR_DB or not only_rowmm(launched) or plain.calls or port != port_want \
             or stats["dropped_samples"] or stats["dropped_output_samples"]:
         failures.append("mmse server backlog: %.2f dB from the CPU, counters %s, %d plain calls, "
                         "%d port kernels, stats %s" % (db, launched, plain.calls, port, stats))
@@ -2065,7 +2238,7 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
           "on %s" % (n_srv, SURFACE_LIVE_S, p50, p90, len(lat_ms), stats["device_steps"], db,
                      least, lsb, launched, plain.calls, card))
     summary["StreamingServer live"] = {"p50_ms": p50, "p90_ms": p90, "db": db, "max_lsb": lsb}
-    if db < CHUNK_SNR_DB or p50 >= 16.0 or any(launched.values()) or plain.calls:
+    if db < CHUNK_SNR_DB or p50 >= 16.0 or not only_rowmm(launched) or plain.calls:
         failures.append("mmse server live: %.2f dB, p50 %.3f ms, counters %s, %d plain calls"
                         % (db, p50, launched, plain.calls))
     return failures, summary
@@ -2075,8 +2248,8 @@ def surface_identity(kt, reset_counts, counts, pcm, battery, path):
     """Part 2: the identity model through ``create`` / ``create_batch`` on the
     card: every streaming entry must give the input back delayed by exactly
     ``delay_sample`` (silence before it), ``enhance`` the input itself, bit
-    for bit, with no kernel launched and no plain version called. Returns
-    (failures, summary)."""
+    for bit, with no kernel but ``rowmm`` launched (the engine's STFT) and
+    no plain version called. Returns (failures, summary)."""
     from koala_tpu_torch.constants import DELAY_SAMPLE
 
     x1 = pcm[:1, :T * 256 - 100]               # a length that is no whole number of frames
@@ -2118,7 +2291,7 @@ def surface_identity(kt, reset_counts, counts, pcm, battery, path):
     launched = counts()
     print("surface identity (delay %d): %s; counters %s, plain-version calls %d"
           % (DELAY_SAMPLE, ", ".join(checked), launched, plain.calls))
-    if any(launched.values()) or plain.calls:
+    if not only_rowmm(launched) or plain.calls:
         failures.append("identity launched %s with %d plain calls" % (launched, plain.calls))
     return failures, {"checked": checked, "launches": launched}
 
@@ -2320,7 +2493,7 @@ def surface_websocket(card, battery, front):
     (``start_web_front``), each from a client thread of its own, against a
     backlog run of an in-process StreamingServer on the same streams (the
     front's chunk and slots; a flush frame after each stream): every reply
-    whole, aligned 1:1 and within ``WS_LSB`` of the backlog run. Returns
+    whole, aligned 1:1 and within ``WS_LSB`` (0) of the backlog run. Returns
     (failures, summary)."""
     import koala_tpu_torch as kt
     from koala_tpu_torch.serve import StreamingServer
@@ -2341,19 +2514,19 @@ def surface_websocket(card, battery, front):
 
     def spread(a, b):
         d = np.abs(a.astype(np.int32) - b.astype(np.int32))
-        return int(d.max()), int(np.count_nonzero(d > 2))
+        return int(d.max()), int(np.count_nonzero(d))
 
     served = backlog()
-    # the card's own spread between two ways of cutting the same streams into
-    # calls: the backlog's rounds of 32 frames (the floor and GRU kernels)
-    # against one process_chunk call, and against rounds of one frame (the step)
+    # two other ways of cutting the same streams into calls: the backlog's
+    # rounds of 32 frames against one process_chunk call, and against rounds
+    # of one frame (the step graph); both 0 LSB (the cuts phase holds them)
     kb = kt.create_batch(ACCESS_KEY, batch_size=nb, device="gpu")
     one_call = spread(served[:, :n], kb.process_chunk(battery))
     kb.delete()
     steps = spread(served, backlog(chunk_frames=1))
     print("surface websocket reference: the server's backlog run in rounds of 32 frames against "
-          "one process_chunk call %d LSB (%d samples past 2 LSB), against rounds of one frame "
-          "(the step) %d LSB (%d past 2) of %d samples on %s"
+          "one process_chunk call %d LSB (%d samples differ), against rounds of one frame "
+          "(the step graph) %d LSB (%d differ) of %d samples on %s"
           % (one_call[0], one_call[1], steps[0], steps[1], nb * n, card))
     wait_for_port(proc, port, "serve_web_torch.py")
     replies, errors = [None] * nb, []
@@ -2375,21 +2548,21 @@ def surface_websocket(card, battery, front):
     diffs = [np.abs(r.astype(np.int32) - served[i, 256:256 + n])
              for i, r in enumerate(replies) if whole[i]]
     lsb = max((int(d.max()) for d in diffs), default=-1)
-    at_3 = sum(int(np.count_nonzero(d == 3)) for d in diffs)
-    past_1 = sum(int(np.count_nonzero(d > 1)) for d in diffs)
-    within = all(d.max() <= WS_LSB[0] and np.count_nonzero(d > WS_LSB[0] - 1) <= max(
-        2, n // WS_LSB[1]) for d in diffs)
+    differ = sum(int(np.count_nonzero(d)) for d in diffs)
+    within = all(d.max() <= WS_LSB for d in diffs)
     print("surface websocket (scripts/serve_web_torch.py --device best, %d clients at once, "
           "%d samples each in masked messages of 16 frames): %d whole replies, aligned 1:1; "
-          "from the server's backlog run: largest difference %d LSB, %d samples at 3 LSB and %d "
-          "past 1 LSB of %d; %.3f s wall on %s"
-          % (nb, n, sum(whole), lsb, at_3, past_1, nb * n, wall, card))
+          "from the server's backlog run: largest difference %d LSB (limit %d), %d samples "
+          "differ of %d; %.3f s wall on %s"
+          % (nb, n, sum(whole), lsb, WS_LSB, differ, nb * n, wall, card))
+    if max(one_call[0], steps[0]) > WS_LSB:
+        errors.append("websocket reference: the backlog run is %d LSB from one process_chunk "
+                      "call and %d LSB from rounds of one frame" % (one_call[0], steps[0]))
     failures = errors + ([] if all(whole) and within and not any(
         th.is_alive() for th in threads) else ["websocket: %d of %d replies whole, %d LSB from "
-                                                "the backlog run (%d samples at 3)"
-                                                % (sum(whole), nb, lsb, at_3)])
-    return failures, {"clients": nb, "max_lsb": lsb, "samples_at_3_lsb": at_3,
-                      "samples_past_1_lsb": past_1, "seconds": wall,
+                                                "the backlog run (%d samples differ)"
+                                                % (sum(whole), nb, lsb, differ)])
+    return failures, {"clients": nb, "max_lsb": lsb, "samples_differ": differ, "seconds": wall,
                       "backlog_vs_one_call": one_call, "backlog_vs_steps": steps}
 
 
@@ -2409,7 +2582,7 @@ def surface_phase(kt, card, reset_counts, counts, pcm):
     bat = battery_streams(load_script("train_model_torch"))
     battery = bat[2]
     totals = dict.fromkeys(("floor_scan", "gru_stack", "gru_stack_hs", "engine_fused",
-                            "engine_fused_device"), 0)
+                            "engine_fused_device", "rowmm"), 0)
     failures, summary, held, fused_held, front = [], {}, {}, {}, None
     with tempfile.TemporaryDirectory() as tmp:
         mmse_path = os.path.join(tmp, "mmse.pv")
@@ -2453,6 +2626,203 @@ def surface_phase(kt, card, reset_counts, counts, pcm):
     return totals, held, fused_held
 
 
+def cuts_part(kt, card, reset_counts, counts, path, x, totals):
+    """One part of the cuts phase: the streams ``x`` [n, frames x 256] int16
+    through the model at ``path``, every way of cutting them into calls
+    against one ``process_chunk`` call, bit for bit. Returns (failures,
+    summary)."""
+    from koala_tpu_torch import serve
+    from koala_tpu_torch.serve import StreamingServer
+
+    nb, width = x.shape
+    frames = width // 256
+    rows = np.ascontiguousarray(x.reshape(nb, frames, 256))
+    failures, ways = [], {}
+
+    def counted(fn):
+        """fn() with the counters set to 0 just before and read just after,
+        and the plain-version calls in it."""
+        torch.cuda.synchronize()
+        reset_counts()
+        with PlainCalls() as plain:
+            out = fn()
+            torch.cuda.synchronize()
+        got = counts()
+        for key, v in got.items():
+            totals[key] += v
+        return out, got, plain.calls
+
+    def held(way, got, want, launched, plain_calls, **extra):
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32)) if got.shape == want.shape \
+            else np.full(1, -1)
+        ways[way] = dict({"max_lsb": int(d.max()), "samples_differ": int(np.count_nonzero(d)),
+                          "samples": int(d.size), "launches": launched,
+                          "plain_calls": plain_calls}, **extra)
+        if got.shape != want.shape or d.max() != 0 or plain_calls:
+            failures.append("%s: %s LSB on %d of %d samples, %d plain-version calls"
+                            % (way, int(d.max()), int(np.count_nonzero(d)), d.size, plain_calls))
+
+    kb = kt.create_batch(ACCESS_KEY, batch_size=nb, model_path=path, device="gpu")
+    kb.process_chunk(x[:, :8 * 256])           # warm-up (lazy set-up)
+    chunk_ms, want = [], None
+    for _ in range(CUTS_CHUNK_REPS):
+        kb.reset()
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = kb.process_chunk(x)
+        chunk_ms.append((time.perf_counter() - s) * 1e3)
+        if want is None:
+            want = out
+        elif not np.array_equal(out, want):
+            failures.append("two process_chunk calls from a reset differ")
+
+    # the server: backlog in rounds of 32 and of 8 frames, single-frame rounds
+    for chunk in (32, 8, 1):
+        srv = StreamingServer(ACCESS_KEY, num_streams=nb, model_path=path, device="gpu",
+                              capacity_frames=frames, chunk_frames=chunk)
+        captures, replays = serve.graph_captures, serve.graph_replays
+
+        def backlog():
+            srv.push_block(rows, np.full(nb, frames, np.int32))
+            return pull_all(srv, nb, frames)
+
+        got, launched, plain_calls = counted(backlog)
+        stats = srv.stats
+        srv.close()
+        held("server rounds of %d" % chunk, got.reshape(nb, -1), want, launched, plain_calls,
+             rounds=stats["device_steps"], graph_captures=serve.graph_captures - captures,
+             graph_replays=serve.graph_replays - replays)
+
+    # the server's live rounds: every stream a frame every 16 ms (after four
+    # single-frame rounds), the frames that come back against the same frames
+    # of the call
+    live_frames = int(CUTS_LIVE_S * 1000 / 16)
+    srv = StreamingServer(ACCESS_KEY, num_streams=nb, model_path=path, device="gpu",
+                          capacity_frames=frames)
+    (lat_ms, got, _, _, stats), launched, plain_calls = counted(
+        lambda: live_cadence(srv, rows, live_frames))
+    live = {"p50_ms": float(np.percentile(lat_ms, 50)), "p90_ms": float(np.percentile(lat_ms, 90))}
+    held("server live rounds", got.reshape(nb, -1),
+         want[:, 4 * 256:(4 + live_frames) * 256], launched, plain_calls,
+         rounds=stats["device_steps"], **live)
+    if live["p50_ms"] >= 16.0:
+        failures.append("live p50 %.3f ms is not below 16 ms" % live["p50_ms"])
+
+    # T KoalaBatch.process calls
+    kb.reset()
+    got, launched, plain_calls = counted(lambda: np.concatenate(
+        [kb.process(x[:, j * 256:(j + 1) * 256]) for j in range(frames)], axis=1))
+    held("KoalaBatch.process x %d" % frames, got, want, launched, plain_calls,
+         gru_launches_a_step=launched["gru_stack"] / frames)
+    kb.delete()
+
+    # Koala.process frame by frame on a few of the streams, each frame timed
+    k = kt.create(ACCESS_KEY, model_path=path, device="gpu")
+    k.process(x[0, :256].tolist())             # warm-up (lazy set-up)
+    picked = np.linspace(0, nb - 1, CUTS_STREAMS).astype(int)
+    lat = []
+
+    def frame_by_frame():
+        out = []
+        for i in picked:
+            k.reset()
+            for j in range(frames):
+                s = time.perf_counter()
+                out.append(k.process(x[i, j * 256:(j + 1) * 256].tolist()))
+                lat.append((time.perf_counter() - s) * 1e3)
+        return np.asarray(out, np.int16).reshape(len(picked), -1)
+
+    got, launched, plain_calls = counted(frame_by_frame)
+    process = {"p50_ms": float(np.percentile(lat, 50)), "p90_ms": float(np.percentile(lat, 90))}
+    held("Koala.process x %d on streams %s" % (frames, picked.tolist()), got, want[picked],
+         launched, plain_calls, gru_launches_a_step=launched["gru_stack"] / got.size * 256,
+         **process)
+    if process["p50_ms"] >= 16.0:
+        failures.append("Koala.process p50 %.3f ms is not below 16 ms" % process["p50_ms"])
+
+    # one stream's Koala.enhance: its aligned output against the call's,
+    # on the samples both compute
+    i = int(picked[-1])
+    k.reset()
+    got, launched, plain_calls = counted(lambda: k.enhance(x[i]))
+    held("Koala.enhance of stream %d" % i, got[:width - 256], want[i, 256:], launched,
+         plain_calls)
+    k.delete()
+
+    gru_step = ways["KoalaBatch.process x %d" % frames]["gru_launches_a_step"]
+    summary = {"streams": nb, "frames": frames, "ways": ways,
+               "process_chunk_ms": {"median": statistics.median(chunk_ms), "least": min(chunk_ms),
+                                    "calls": len(chunk_ms)},
+               "gru_launches_an_eager_step": gru_step, "Koala.process": process,
+               "server_live": live}
+    for way, v in ways.items():
+        rounds = "; %d rounds" % v["rounds"] if "rounds" in v else ""
+        if v.get("graph_replays"):
+            rounds += ", step graph captured %d time(s) and replayed %d times" % (
+                v["graph_captures"], v["graph_replays"])
+        print("cuts   %-40s max|diff| %d LSB, %d of %d samples differ; launches %s, plain-version "
+              "calls %d%s" % (way, v["max_lsb"], v["samples_differ"], v["samples"],
+                              v["launches"], v["plain_calls"], rounds))
+    print("cuts   process_chunk at B=%d x T=%d: median %.2f ms, least %.2f of %d calls; an eager "
+          "step launches the GRU kernel %g time(s); Koala.process p50 %.3f ms, p90 %.3f ms a "
+          "frame; the server's live p50 %.3f ms, p90 %.3f ms on %s"
+          % (nb, frames, summary["process_chunk_ms"]["median"], min(chunk_ms), len(chunk_ms),
+             gru_step, process["p50_ms"], process["p90_ms"], live["p50_ms"], live["p90_ms"],
+             card))
+    return failures, summary, gru_step
+
+
+def cuts_phase(kt, card, reset_counts, counts, pcm):
+    """Phase 2e: a stream's output against how it is cut into calls, in
+    three parts: the bundled model on the battery's 21 streams and on the
+    mix (B = 64 x 376), and mmse on the battery. In each, the server's
+    backlog in rounds of 32 and of 8 frames, its single-frame rounds (the
+    step graph), its live rounds, T ``KoalaBatch.process`` calls,
+    ``Koala.process`` frame by frame on ``CUTS_STREAMS`` streams and one
+    stream's ``Koala.enhance`` must give one ``process_chunk`` call's int16
+    bit for bit, and call no plain version; an eager step of the bundled
+    model launches the GRU kernel once (a launch plan at B = 1, 21 and 64),
+    mmse's never. Each part prints its lines (``cuts ...``); a part that
+    fails (or raises) fails the run after all three have printed. Returns
+    the kernels' launches in the phase."""
+    from koala_tpu_torch.models import mmse as mmse_model
+    from koala_tpu_torch.models import params_io
+
+    battery = battery_streams(load_script("train_model_torch"))[2]
+    totals = dict.fromkeys(("floor_scan", "gru_stack", "gru_stack_hs", "engine_fused",
+                            "engine_fused_device", "rowmm"), 0)
+    failures, summary = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mmse_path = os.path.join(tmp, "mmse.pv")
+        params_io.save_params(mmse_path, mmse_model.init_params(), mmse_model.DEFAULT_CONFIG)
+        bundled = params_io.default_model_path()
+        parts = (("mask_gru battery B=%d" % len(battery), bundled, battery, 1),
+                 ("mask_gru mix B=%d" % B, bundled, pcm[:, :T * 256], 1),
+                 ("mmse battery B=%d" % len(battery), mmse_path, battery, 0))
+        for name, path, x, gru_step_want in parts:
+            s = time.perf_counter()
+            try:
+                part_failures, part_summary, gru_step = cuts_part(
+                    kt, card, reset_counts, counts, path, x, totals)
+                if gru_step != gru_step_want:
+                    part_failures.append("an eager step launched the GRU kernel %g times, not %d"
+                                         % (gru_step, gru_step_want))
+            except (Exception, SystemExit) as e:   # a part's fault fails the run, later
+                import traceback
+
+                traceback.print_exc()
+                part_failures, part_summary = ["%s raised %r" % (name, e)], {}
+            summary[name] = dict(part_summary, seconds=time.perf_counter() - s)
+            print("cuts %s: %s in %.1f s" % (name, "ok: every way bit for bit" if not part_failures
+                                            else "FAILED: " + "; ".join(part_failures),
+                                            time.perf_counter() - s), flush=True)
+            failures += ["%s: %s" % (name, f) for f in part_failures]
+    print(json.dumps({"cuts": summary, "launches": totals, "card": card}), flush=True)
+    if failures:
+        fail("cuts: " + "; ".join(failures))
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA card: this script measures the port on a card")
@@ -2469,7 +2839,7 @@ def main() -> None:
     from koala_tpu_torch.engine.core import make_engine
     from koala_tpu_torch.models import identity as identity_model
     from koala_tpu_torch.models import mask_gru as mask_gru_model
-    from koala_tpu_torch.ops.kernels import _build, engine_fused, floor, gru
+    from koala_tpu_torch.ops.kernels import _build, engine_fused, floor, gru, rowmm
     from koala_tpu_torch.profiling import time_ms
 
     # True float32 for every float32 product (plain versions, STFT): no TF32.
@@ -2489,7 +2859,8 @@ def main() -> None:
     counters = {"floor_scan": (floor, "launches"), "gru_stack": (gru, "launches"),
                 "gru_stack_hs": (gru, "launches_hs"), "engine_fused": (engine_fused, "launches"),
                 # the device launches that the fused calls made: five a segment
-                "engine_fused_device": (engine_fused, "device_launches")}
+                "engine_fused_device": (engine_fused, "device_launches"),
+                "rowmm": (rowmm, "launches")}
 
     def reset_counts():
         for m, attr in counters.values():
@@ -2513,15 +2884,19 @@ def main() -> None:
     k.reset()
     reset_counts()
     lat, out_proc = [], []
-    for f in frames:
-        s = time.perf_counter()
-        out_proc.append(k.process(f.tolist()))
-        lat.append(time.perf_counter() - s)
+    with Recorder(mask_gru_model, "gru_stack") as rec_step:
+        for f in frames:
+            s = time.perf_counter()
+            out_proc.append(k.process(f.tolist()))
+            lat.append(time.perf_counter() - s)
     proc_counts = counts()
     out_proc = np.asarray(out_proc, np.int16)
     if out_proc.shape != (PROCESS_FRAMES, 256):
         fail("process output shape %s" % (out_proc.shape,))
     print("path Koala.process: %d frames, launches %s" % (PROCESS_FRAMES, proc_counts))
+    if proc_counts["gru_stack"] != PROCESS_FRAMES or proc_counts["rowmm"] < PROCESS_FRAMES:
+        fail("Koala.process should launch the GRU kernel once a frame and rowmm: %s"
+             % proc_counts)
 
     # reset reproduces a fresh stream bit for bit
     k.reset()
@@ -2552,13 +2927,18 @@ def main() -> None:
                                                                 pcm)
     surface_s = time.perf_counter() - s
 
+    # a stream's output against how it is cut into calls
+    s = time.perf_counter()
+    cuts_counts = cuts_phase(kt, card, reset_counts, counts, pcm)
+    cuts_s = time.perf_counter() - s
+
     # KoalaBatch.process_chunk: floor + GRU kernels
     kb.process_chunk(pcm[:, :8 * 256])       # warm-up (lazy set-up)
     kb.reset()
     torch.cuda.synchronize()
     reset_counts()
     with Recorder(mask_gru_model, "floor_scan") as rec_floor, \
-            Recorder(mask_gru_model, "gru_stack") as rec_gru:
+            Recorder(mask_gru_model, "gru_stack") as rec_gru, RecordAll(rowmm, "rowmm") as rec_mm:
         s = time.perf_counter()
         out_chunk = kb.process_chunk(pcm[:, :n_chunk])
         chunk_s = time.perf_counter() - s
@@ -2631,6 +3011,9 @@ def main() -> None:
     launches = {"floor_scan": chunk_counts["floor_scan"],
                 "gru_stack": chunk_counts["gru_stack"],
                 "engine_fused": enh_counts["engine_fused"]}
+    if chunk_counts["rowmm"] != len(ROWMM_SITES):
+        fail("process_chunk should make %d rowmm launches: %s"
+             % (len(ROWMM_SITES), chunk_counts))
 
     # ---- 3. kernels against their plain versions, on the main path's inputs
     kernels = []
@@ -2688,6 +3071,9 @@ def main() -> None:
         "bound_ms": max(g_bound.values()), "bound_by": max(g_bound, key=g_bound.get),
         "library_ms": lib_ms, "shape": [t_len, b, h, L], **gru_launch_keys(gru, xg, L)})
     gru_shape_checks(gru, _build.library(), dev, (wx, bx, wh, bh))
+    # and on the step's inputs (Koala.process: T = 1, a batch of one)
+    kernels[1]["step"] = gru_step_hold(gru, rec_step.args, card)
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], kernels[1]["step"]["max_abs_err"])
 
     # fused engine
     params, state, hops, cfg = rec_fused.args
@@ -2743,6 +3129,9 @@ def main() -> None:
         "device_launches_per_call": fused_device_launches, "stage_ms": stages,
         # the GRU stage's chain of grid barriers: what the whole cannot go below
         **gru_launch_keys(gru, torch.empty((t_len, b, h), dtype=torch.bfloat16, device=dev), L)})
+
+    # the fixed-order product, on the inputs of process_chunk's nine products
+    kernels.append(rowmm_hold(rowmm, rec_mm.calls, card))
 
     # ---- 4. the training path, its kernel variant and its gradients
     hs_entry, floor_train = training_phases(kt, dev, card, reset_counts, counts)
@@ -2886,6 +3275,20 @@ def main() -> None:
                          "gate_phase": gate_counts["engine_fused"],
                          "acceptance": accept_counts["engine_fused"],
                          "surface": surface_counts["engine_fused"]},
+        "rowmm": {"Koala.process": proc_counts["rowmm"],
+                  "process_chunk": chunk_counts["rowmm"],
+                  "enhance": enh_counts["rowmm"],
+                  "Koala.enhance": single_counts["rowmm"],
+                  "server_backlog": backlog_counts["rowmm"],
+                  "corpus_runner": corpus_counts["rowmm"],
+                  "data_parallel_step": dp_counts["rowmm"],
+                  "bench": bench_counts["rowmm"],
+                  "bench_sweep": sweep_counts["rowmm"],
+                  "pod_wash": wash_counts["rowmm"],
+                  "gate_phase": gate_counts["rowmm"],
+                  "acceptance": accept_counts["rowmm"],
+                  "surface": surface_counts["rowmm"],
+                  "cuts": cuts_counts["rowmm"]},
     }
     for kr in kernels:
         kr["launches_by_path"] = by_path[kr["name"]]
@@ -2901,7 +3304,8 @@ def main() -> None:
                          if "sequential_floor_ms" in kr else
                          " queued_ms %.4f empty_launch_ms %.4f (queued %.4f)"
                          % (kr["queued_ms"], kr["empty_launch_ms"],
-                            kr["empty_launch_queued_ms"]),
+                            kr["empty_launch_queued_ms"]) if "queued_ms" in kr else
+                         " (the nine products of process_chunk)",
                          kr["launches"], card))
     print("kernel floor_scan on the training path, lb %s: ms %.4f queued_ms %.4f plain_ms %.4f "
           "max|err| %g launches %d on %s"
@@ -2910,9 +3314,9 @@ def main() -> None:
     k.delete()
     kb.delete()
     print("chip_smoke: %.1f s from the build on, of which one stream's enhance %.1f s, "
-          "acceptance %.1f s, surface %.1f s, bench %.1f s, bench_sweep %.1f s, pod_wash %.1f s, "
-          "gate %.1f s, demo %.1f s, generators %.1f s"
-          % (time.perf_counter() - t0, single_s, accept_s, surface_s, phase_s["bench"],
+          "acceptance %.1f s, surface %.1f s, cuts %.1f s, bench %.1f s, bench_sweep %.1f s, "
+          "pod_wash %.1f s, gate %.1f s, demo %.1f s, generators %.1f s"
+          % (time.perf_counter() - t0, single_s, accept_s, surface_s, cuts_s, phase_s["bench"],
              phase_s["bench_sweep"], phase_s["pod_wash"], phase_s["gate"], phase_s["demo"],
              phase_s["generators"]))
 

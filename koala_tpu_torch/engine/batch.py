@@ -105,7 +105,9 @@ class KoalaBatch:
     @torch.inference_mode()
     def process_chunk(self, pcm) -> np.ndarray:
         """[B, T*256] int16 -> [B, T*256] enhanced int16 (delayed stream);
-        the same result as T successive ``process`` calls within an LSB."""
+        the same result as T successive ``process`` calls, bit for bit on a
+        card. On the CPU, whose vectorised sigmoid and gelu round a tensor's
+        last few elements as their scalar forms do, within an LSB."""
         self._check_handle()
         pcm = np.asarray(pcm)
         if pcm.ndim != 2 or pcm.shape[0] != self._batch_size \

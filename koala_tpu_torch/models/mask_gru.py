@@ -11,7 +11,12 @@ weights:
 Products run as the JAX package's ``_mm``: both operands rounded to the
 compute dtype (bfloat16), products summed in float32. ``torch.matmul`` on
 bf16 tensors would round its output to bf16 too, so the operands are
-rounded and multiplied as float32 instead.
+rounded and multiplied as float32 instead. Every frame-local product (the
+encoder, decoder, gate, band and cepstral pools, the scan branch's GRU
+projections) goes through ``ops/kernels/rowmm.py``'s ``matmul``: on a card
+the fixed-order kernel, whose rows have the same bits in a call of any
+number of frames (on the CPU its plain version), and ``torch.matmul`` where
+autograd records a graph (training).
 
 ``apply_sequence`` keeps the JAX branch structure. The kernel branch runs
 the floor tracker (ops/kernels/floor.py) and the GRU stack
@@ -26,6 +31,18 @@ one warning, as the JAX package does where its kernel does not fit. The
 kernels take one batch axis: on the kernel branch an unbatched input (one
 stream's ``Koala.enhance``) gets a batch of one, and a batch of several axes
 is flattened to one, for the recurrences only.
+
+``step`` (one frame: ``Koala.process``, ``KoalaBatch.process``, the server's
+single-frame rounds) takes the same branch as ``apply_sequence`` at the same
+rows: where ``_gru_kernel_enabled`` holds it runs the GRU stack as one
+``gru_stack`` launch at T = 1 (on the CPU under ``use_pallas=True`` its
+plain version), so that its sums, gate functions and bf16 residual stream
+are the sequence's; elsewhere the scan's ``_gru_recurrent``, as the scan
+branch of ``apply_sequence``. Its floor update is the kernel's arithmetic,
+elementwise. A frame thus comes out of T steps with the bits of one call of
+T frames on a card (on the CPU where a call's element counts are whole
+multiples of the vector width: PyTorch's vectorised sigmoid and gelu round
+a tensor's last elements through their scalar forms).
 
 Training: parameters are created frozen (inference never builds a graph);
 a trainer calls ``requires_grad_(True)`` on the module. Under grad mode the
@@ -50,6 +67,7 @@ from torch import nn
 from ..constants import NUM_BINS
 from ..ops.kernels.floor import floor_scan, floor_scan_ref, floor_scan_trainable
 from ..ops.kernels.gru import H100_SMS, gru_stack, gru_stack_trainable, plan_launch
+from ..ops.kernels.rowmm import matmul
 
 logger = logging.getLogger("koala_tpu_torch")
 
@@ -227,10 +245,11 @@ def num_params(params: MaskGRU) -> int:
 
 
 def _mm(x, params: MaskGRU, name: str, cfg):
-    """Model product in the configured compute dtype, f32 sums."""
+    """Model product in the configured compute dtype, f32 sums (``matmul``:
+    the fixed-order kernel on a card)."""
     if cfg.get("compute_dtype") == "bfloat16":
         x = x.bfloat16()
-    return torch.matmul(x.float(), params.rounded(name, cfg))
+    return matmul(x.float(), params.rounded(name, cfg))
 
 
 def features(re, im, cfg):
@@ -289,7 +308,7 @@ def cep_features(re, im, cfg):
     basis = _constant_on("cep", cfg["bins"], nb, re.device)
     _, bounds = _cep_matrix_np(cfg["bins"], nb)
     logmag = 0.5 * torch.log(re * re + im * im + cfg["feat_eps"] ** 2)
-    c = torch.matmul(logmag, basis)
+    c = matmul(logmag, basis)
     gmax = torch.stack([c[..., lo:hi].amax(dim=-1) for lo, hi in bounds], dim=-1)
     return torch.clamp(gmax * cfg["cep_scale"], -1.0, 4.0)
 
@@ -297,7 +316,7 @@ def cep_features(re, im, cfg):
 def band_log_energy(re, im, cfg):
     """Spectrum [*, K] -> banded log-energy [*, nb] (floor-tracker domain)."""
     m = _constant_on("band", cfg["bins"], cfg["snr_bands"], re.device)
-    e = torch.matmul(re * re + im * im, m)
+    e = matmul(re * re + im * im, m)
     return torch.log(e + cfg["feat_eps"] ** 2)
 
 
@@ -430,14 +449,25 @@ def step(params: MaskGRU, state, re, im, config: Dict[str, Any] = None):
     if cfg.get("cep_feats"):
         x = torch.cat([x, _feat(cep_features(re, im, cfg), cfg)], dim=-1)
     x = F.gelu(_mm(x, params, "enc.w", cfg) + params.enc.b, approximate="tanh")
-    new_states = []
-    for i, layer in enumerate(params.gru):
-        xproj = _mm(x, params, "gru.%d.wx" % i, cfg) + layer.bx
-        h = _gru_recurrent(params, i, hstate[..., i, :], xproj, cfg)
-        new_states.append(h)
-        x = x + h
+    if _gru_kernel_enabled(cfg, x.unsqueeze(-2)):
+        # the stack as one launch at T = 1: the sequence's arithmetic
+        lead = x.shape[:-1]
+        stack = gru_stack_trainable if params.training_graph() else gru_stack
+        y, h_new = stack(
+            hstate.reshape((-1,) + hstate.shape[-2:]).movedim(1, 0).contiguous(),  # [L, B, H]
+            x.reshape(1, -1, x.shape[-1]).bfloat16().contiguous(),              # [1, B, H]
+            *params.gru_stacked())
+        x = y.reshape(lead + x.shape[-1:])                                        # [*, H] bf16
+        h_new = h_new.movedim(0, 1).reshape(hstate.shape)                         # [*, L, H]
+    else:
+        new_states = []
+        for i, layer in enumerate(params.gru):
+            xproj = _mm(x, params, "gru.%d.wx" % i, cfg) + layer.bx
+            h = _gru_recurrent(params, i, hstate[..., i, :], xproj, cfg)
+            new_states.append(h)
+            x = x + h
+        h_new = torch.stack(new_states, dim=-2)
     mask = _mask_head(params, x, cfg)
-    h_new = torch.stack(new_states, dim=-2)
     return ({"h": h_new, "floor": floor} if nb else h_new), mask
 
 

@@ -99,6 +99,7 @@ _SIGNATURES = {
     "koala_engine_fused": ([_P], _I),   # pointer to struct FusedArgs (host memory)
     "koala_engine_fused_smem": ([_I, _I], ctypes.c_size_t),
     "koala_empty_launch": ([_P], _I),
+    "koala_rowmm": ([_P, _P, _P, _I, _I, _I, _P], _I),
 }
 
 

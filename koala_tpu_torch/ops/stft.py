@@ -5,11 +5,15 @@ real DFT written as matmuls against cos/sin bases built in float64 numpy,
 hop 256, sqrt-Hann window folded into the bases. Perfect reconstruction with
 a delay of exactly one hop.
 
-The matmuls run in true float32: on a card that holds only while
-``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's default).
-The forward transform keeps two separate matmuls for re and im, as the JAX
-package does: that is what keeps the one-hop step path and the sequence
-path within one int16 LSB of each other.
+The matmuls run in true float32 through ``kernels.rowmm.matmul``: on a card
+the fixed-order kernel (csrc/rowmm.cu), whose rows have the same bits in a
+call of one frame and of many, so the one-hop step path and the sequence
+path agree bit for bit (on the CPU its plain version); wherever autograd
+records a graph (training), ``torch.matmul``, which on a card is true
+float32 only while ``torch.backends.cuda.matmul.allow_tf32`` stays False
+(PyTorch's default).
+The forward transform keeps two separate matmuls for re and im, and the
+inverse two products and an add, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from ..constants import FFT_SIZE, FRAME_LENGTH
+from .kernels.rowmm import matmul
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,14 +110,14 @@ def analysis_window(fft_size: int = FFT_SIZE, device="cpu") -> torch.Tensor:
 def stft_frame(frames: torch.Tensor, windowed: bool = True):
     """[..., FFT_SIZE] time frames -> (re, im) each [..., NUM_BINS]."""
     fwd_re, fwd_im, _, _ = _bases_on(frames.shape[-1], windowed, frames.device)
-    return torch.matmul(frames, fwd_re), torch.matmul(frames, fwd_im)
+    return matmul(frames, fwd_re), matmul(frames, fwd_im)
 
 
 def istft_frame(re: torch.Tensor, im: torch.Tensor, windowed: bool = True) -> torch.Tensor:
     """(re, im) [..., NUM_BINS] -> synthesis-windowed time frame [..., FFT_SIZE]."""
     fft_size = 2 * (re.shape[-1] - 1)
     _, _, inv_re, inv_im = _bases_on(fft_size, windowed, re.device)
-    return torch.matmul(re, inv_re) + torch.matmul(im, inv_im)
+    return matmul(re, inv_re) + matmul(im, inv_im)
 
 
 def frame_signal(pcm: torch.Tensor, hop: int = FRAME_LENGTH,

@@ -24,9 +24,15 @@ Two kinds of round, chosen from the backlog:
 - any other backlog, down to one frame (the live case): ``chunk_masked``, a
   fold of ``step_masked`` over the frame slots up to the longest backlog.
 On a card the masked step is captured once as a CUDA graph and replayed,
-once a frame slot: the eager step is about a hundred launches, and Python
+once a frame slot: the eager step is several dozen launches, and Python
 threads of the same process (clients, the route thread) contend with each
-for the interpreter lock.
+for the interpreter lock. The graph holds the step's kernels: the
+fixed-order products (``rowmm``) and the GRU stack as one cooperative
+launch at T = 1, with its exchange buffer and zeroed barrier counters made
+inside the capture. A capture that the card refuses raises; the server does
+not fall back to the eager step. Both kinds of round compute a frame with
+the bits of one ``process_chunk`` call over the whole stream, so what a
+client gets back does not depend on how its frames were cut into rounds.
 
 int16 crosses both device boundaries: the gathered frames are uploaded as
 they are and converted on the device (``/ 32768``), and the output is
@@ -68,6 +74,12 @@ from .models import params_io
 from .sdk import max_streams_quota
 
 logger = logging.getLogger("koala_tpu_torch")
+
+# step graphs captured and replayed since the last reset (plain integers). A
+# replay runs the kernels that its capture recorded without passing through
+# their wrappers, so the kernels' own launch counters count the captures only.
+graph_captures = 0
+graph_replays = 0
 
 
 class _Shard:
@@ -111,11 +123,14 @@ def capture_graph(body, device, warm_up=None) -> torch.cuda.CUDAGraph:
 class _StepGraph:
     """A shard's masked single-frame step as a CUDA graph: int16 hop and
     active mask in, state committed in place, int16 output out. The eager
-    step is about a hundred small launches, each a trip through Python that
-    gives up and takes back the interpreter lock; a replay is one. Only the
-    step path is captured: it launches none of the counted kernels."""
+    step is several dozen launches, each a trip through Python that gives up
+    and takes back the interpreter lock; a replay is one. The graph holds
+    the step's counted kernels (``rowmm`` and, where the model has a launch
+    plan, ``gru_stack`` at T = 1): their wrappers count the warm-up and the
+    capture, ``graph_replays`` every replay."""
 
     def __init__(self, engine, shard: _Shard):
+        global graph_captures
         n, dev = shard.hi - shard.lo, shard.device
         self.hop = torch.zeros((n, FRAME_LENGTH), dtype=torch.int16, device=dev)
         self.active = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -131,13 +146,16 @@ class _StepGraph:
         # the warm-up runs the body itself: no stream is active, so the state
         # is kept as it is
         self.graph = capture_graph(body, dev)
+        graph_captures += 1
 
     def replay(self, hop: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         """One masked step on the current stream; returns the output buffer,
         which the next replay overwrites (read it on the same stream)."""
+        global graph_replays
         self.hop.copy_(hop)
         self.active.copy_(active)
         self.graph.replay()
+        graph_replays += 1
         return self.out
 
 

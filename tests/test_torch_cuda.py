@@ -13,7 +13,7 @@ import torch
 import koala_tpu_torch
 from koala_tpu_torch.engine.core import make_engine
 from koala_tpu_torch.models import mask_gru, params_io
-from koala_tpu_torch.ops.kernels import engine_fused, floor, gru
+from koala_tpu_torch.ops.kernels import engine_fused, floor, gru, rowmm
 
 from torch_ref import ACCESS_KEY, cuda_device, snr_db  # noqa: F401  (fixture)
 
@@ -526,7 +526,8 @@ def _pull_frames(server, streams, frames, timeout=60.0):
 @pytest.mark.cuda
 def test_server_backlog_rounds_launch_the_kernels(cuda_device):
     """Full-chunk backlog rounds of the StreamingServer on the card run the
-    sequence engine (floor + GRU kernels), near process_chunk on the card."""
+    sequence engine (floor + GRU kernels), with process_chunk's bits on the
+    card."""
     from koala_tpu_torch.serve import StreamingServer
 
     streams, frames = 8, 32
@@ -543,7 +544,7 @@ def test_server_backlog_rounds_launch_the_kernels(cuda_device):
         server.close()
     kb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=streams, device="gpu")
     ref = kb.process_chunk(rows.reshape(streams, -1))
-    assert snr_db(ref.astype(np.float64), got.reshape(streams, -1).astype(np.float64)) > 35.0
+    np.testing.assert_array_equal(got.reshape(streams, -1), ref)
 
 
 @pytest.mark.cuda
@@ -661,7 +662,9 @@ def test_gru_gate_on_the_card(cuda_device, tmp_path, hidden, layers, gru_launche
 @pytest.mark.cuda
 def test_graphed_step_chain_equals_the_eager_chain(cuda_device):
     """bench_torch's chain of steps replayed from a CUDA graph leaves the
-    bits that the same steps made eagerly on the card leave."""
+    bits that the same steps made eagerly on the card leave. The graph holds
+    the GRU kernel (one cooperative launch at T = 1, captured), and an eager
+    step launches it once."""
     import os
     import sys
 
@@ -671,16 +674,175 @@ def test_graphed_step_chain_equals_the_eager_chain(cuda_device):
     engine, params = bench_torch.load_engine(cuda_device)
     hop = _randn(12, (256,), 0.05, cuda_device)
     with torch.inference_mode():
+        before = gru.launches
         chain = bench_torch.StepChain(engine, params, engine.init_state((), cuda_device),
                                       hop.clone())
         assert chain.graph is not None
+        assert gru.launches > before            # the warm-up's and the capture's
+        before = gru.launches
         chain.run(40)
+        assert gru.launches == before           # replays pass no wrapper
         state, out = engine.init_state((), cuda_device), hop
         for _ in range(40):
             state, out = engine.step(params, state, out)
+        assert gru.launches == before + 40
     torch.cuda.synchronize()
     assert torch.equal(chain.hop, out)
     for k in ("input_carry", "ola"):
         assert torch.equal(chain.state[k], state[k])
     for k in ("h", "floor"):
         assert torch.equal(chain.state["model"][k], state["model"][k])
+
+
+# (K, N) of the port's frame-local products: the STFT's two bases, the
+# iSTFT's two, the band pool, the cepstral basis, the encoder, decoder and
+# gate of the bundled model, and the scan branch's wx and wh
+ROWMM_SITES = [(512, 257), (257, 512), (257, 32), (257, 161), (329, 384), (384, 257),
+               (384, 1), (384, 1152)]
+# rows of the call sites: one stream's frame, the battery's 21 streams, the
+# main path's 64, a round of 8 frames of the battery, the battery's 365
+# frames in one call, the main path's 376 x 64
+ROWMM_ROWS = (1, 21, 64, 8 * 21, 365 * 21, 376 * 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", ROWMM_SITES)
+def test_rowmm_matches_plain_at_the_call_sites(cuda_device, k, n):
+    """The fixed-order product within 1e-5 of the largest element of its
+    plain version (both float32: sums of up to 1152 products in another
+    order), at every row count of the main paths."""
+    b = _randn(41, (k, n), 0.1, cuda_device)
+    for m in ROWMM_ROWS:
+        a = _randn(40 + m, (m, k), 1.0, cuda_device)
+        before = rowmm.launches
+        got = rowmm.rowmm(a, b)
+        assert rowmm.launches == before + 1
+        want = rowmm.rowmm_ref(a, b)
+        torch.cuda.synchronize()
+        assert got.shape == (m, n)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), (m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(512, 257), (384, 1)])
+def test_rowmm_row_bits_do_not_depend_on_the_rows(cuda_device, k, n):
+    """A row of the product has the same bits at M = 1, 7, 64 and 24064 and
+    wherever it lies in a 64-row tile."""
+    a = _randn(42, (376 * 64, k), 1.0, cuda_device)
+    b = _randn(43, (k, n), 0.1, cuda_device)
+    full = rowmm.rowmm(a, b)
+    for m in (1, 7, 64, 376 * 64):
+        for start in (0, 5, 63, 64 + 17, 376 * 64 - m):
+            if start + m <= a.shape[0]:
+                got = rowmm.rowmm(a[start:start + m].contiguous(), b)
+                assert torch.equal(got, full[start:start + m]), (m, start)
+
+
+@pytest.mark.cuda
+def test_rowmm_refuses_what_it_does_not_take(cuda_device):
+    a = _randn(44, (8, 16), 1.0, cuda_device)
+    b = _randn(45, (16, 4), 1.0, cuda_device)
+    for bad_a, bad_b in ((a.bfloat16(), b), (a, b.double()), (a[:, :8], b),
+                         (a.t(), b[:8]), (a, b.cpu())):
+        with pytest.raises(ValueError):
+            rowmm.rowmm(bad_a, bad_b)
+
+
+@pytest.mark.cuda
+def test_gru_kernel_gives_a_stream_the_same_bits_at_any_batch(cuda_device, bundled):
+    """The GRU kernel sums a row without the other rows: a stream has the
+    same bits at B = 1, 21 and 64, at another row of the batch, and over
+    T = 40 steps in one launch or 40 chained launches at T = 1."""
+    tree, _ = bundled
+    params = params_io.params_from_numpy(tree, cuda_device)
+    weights = params.gru_stacked()
+    x = _randn(46, (40, 64, 384), 1.0, cuda_device).bfloat16()
+    h0 = _randn(47, (2, 64, 384), 0.5, cuda_device)
+    with torch.inference_mode():
+        y64, h64 = gru.gru_stack(h0, x, *weights)
+        for b in (1, 21):
+            y, h = gru.gru_stack(h0[:, :b].contiguous(), x[:, :b].contiguous(), *weights)
+            assert torch.equal(y, y64[:, :b]) and torch.equal(h, h64[:, :b]), b
+        perm = torch.randperm(64, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+        y, h = gru.gru_stack(h0[:, perm].contiguous(), x[:, perm].contiguous(), *weights)
+        assert torch.equal(y, y64[:, perm]) and torch.equal(h, h64[:, perm])
+        h, ys = h0, []
+        for t in range(40):
+            y, h = gru.gru_stack(h, x[t:t + 1].contiguous(), *weights)
+            ys.append(y)
+        assert torch.equal(torch.cat(ys), y64) and torch.equal(h, h64)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mask_gru", "mmse"])
+def test_round_shapes_agree_bit_for_bit(cuda_device, tmp_path, model):
+    """One process_chunk call over 40 frames, rounds of 1, 8 and 32 frames,
+    40 KoalaBatch.process calls, one stream's Koala.process frame by frame
+    and its Koala.enhance: the same int16, bit for bit. An eager step
+    launches the GRU kernel once (mask_gru) and calls no plain version."""
+    path = params_io.default_model_path()
+    if model == "mmse":
+        from koala_tpu_torch.models import mmse
+
+        path = str(tmp_path / "mmse.pv")
+        params_io.save_params(path, mmse.init_params(), mmse.DEFAULT_CONFIG)
+    streams, frames = 5, 40
+    pcm = (np.random.default_rng(11).standard_normal((streams, frames * 256)) * 3000
+           ).astype(np.int16)
+    kb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=streams, model_path=path,
+                                      device="gpu")
+    one = kb.process_chunk(pcm)
+    for r in (1, 8, 32):
+        kb.reset()
+        got = np.concatenate([kb.process_chunk(pcm[:, j * 256:(j + r) * 256])
+                              for j in range(0, frames, r)], axis=1)
+        np.testing.assert_array_equal(got, one, err_msg="rounds of %d" % r)
+    kb.reset()
+    before = (gru.launches, rowmm.launches)
+    got = np.concatenate([kb.process(pcm[:, j * 256:(j + 1) * 256]) for j in range(frames)],
+                         axis=1)
+    assert gru.launches - before[0] == (frames if model == "mask_gru" else 0)
+    assert rowmm.launches > before[1]
+    np.testing.assert_array_equal(got, one)
+    k = koala_tpu_torch.create(ACCESS_KEY, model_path=path, device="gpu")
+    got = np.concatenate([k.process(pcm[2, j * 256:(j + 1) * 256].tolist())
+                          for j in range(frames)])
+    np.testing.assert_array_equal(got, one[2])
+    k.reset()
+    enh = k.enhance(pcm[2])
+    np.testing.assert_array_equal(enh[:-256], one[2, 256:])
+
+
+@pytest.mark.cuda
+def test_server_rounds_of_every_shape_equal_process_chunk(cuda_device):
+    """The server's backlog in rounds of 32 and of 8 frames and its
+    single-frame rounds (the step graph, which holds the GRU kernel) give
+    process_chunk's bits; a replay moves ``graph_replays``."""
+    import time
+
+    from koala_tpu_torch import serve
+    from koala_tpu_torch.serve import StreamingServer
+
+    streams, frames = 6, 40
+    rows = (np.random.default_rng(12).standard_normal((streams, frames, 256)) * 3000
+            ).astype(np.int16)
+    kb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=streams, device="gpu")
+    want = kb.process_chunk(rows.reshape(streams, -1)).reshape(streams, frames, 256)
+    for chunk in (32, 8, 1):
+        server = StreamingServer(ACCESS_KEY, num_streams=streams, device="gpu",
+                                 chunk_frames=chunk, capacity_frames=frames)
+        replays = serve.graph_replays
+        try:
+            if chunk > 1:
+                server.push_block(rows, np.full(streams, frames, np.int32))
+            else:
+                for j in range(frames):
+                    server.push_block(rows[:, j:j + 1], np.ones(streams, np.int32))
+                    time.sleep(0.005)
+            got = _pull_frames(server, streams, frames)
+        finally:
+            server.close()
+        np.testing.assert_array_equal(got, want, err_msg="chunk %d" % chunk)
+        if chunk != 8:                           # 40 frames leave 8 past the last 32
+            assert serve.graph_replays > replays
