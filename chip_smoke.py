@@ -79,9 +79,15 @@
    and timed too, a loop of launches and queued behind a spin kernel.
    The fixed-order product ``rowmm`` is held on the inputs of each of the
    nine products of ``process_chunk``'s call (K and N of each), at M = 1,
-   21, 64, 8 x 21, 365 x 21 and 376 x 64 rows, within a relative 1e-5 of
-   its plain version, and a row must have the same bits at every M and at
-   several places in a tile.
+   21, 64, 8 x 21, 365 x 21 and 376 x 64 rows and at its one-row kernels'
+   limit and one row either side of it: bit for bit the first design's
+   kernel (``rowmm_simple``, which no path launches), so within a relative
+   1e-5 of its plain version, the decoder's and the gate's operand also as
+   the call gave it (a permuted view, read in place), and a row must have
+   the same bits at every M and at several places in a tile. Its times
+   stand at M = 1 (the step, queued), 64 (a live round, queued) and
+   376 x 64, each beside ``rowmm_simple``'s, ``torch.matmul``'s and the
+   bound; at one row also the chain of K dependent FMAs a thread.
    Times kernel, plain version and (where one exists) a library call with
    CUDA events after warm-up, computes each kernel's bound from its shapes
    and the card's published peaks and, for the GRU kernel, times its chain
@@ -160,8 +166,9 @@
    byte-identical runs, every WAV 93680 samples.
 12. Prints one ``{"kernels": [...]}`` line (five entries: each kernel's
    launches by path and in all; ``rowmm``'s times are the sum over the nine
-   products at 376 x 64 rows, beside ``torch.matmul``'s), the card's name
-   and power limit, and, last,
+   products at 376 x 64 rows, beside ``rowmm_simple``'s and
+   ``torch.matmul``'s, with the same at 64 rows and one, and
+   ``bits_equal_simple``), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero. Without a CUDA card, or without the
@@ -237,9 +244,10 @@ WS_LSB = 0
 # largest element of the plain result (float32 sums of up to 512 products in
 # another order)
 ROWMM_REL = 1e-5
-# the rows at which it is held: one stream's frame, the battery's 21 streams,
-# the main path's 64, a round of 8 frames of the battery, the battery's 365
-# frames in one call, the main path's 376 x 64
+# the rows at which it is held (and at rowmm.ROW_MAX and either side of it):
+# one stream's frame, the battery's 21 streams, the main path's 64, a round
+# of 8 frames of the battery, the battery's 365 frames in one call, the main
+# path's 376 x 64
 ROWMM_ROWS = (1, 21, 64, 8 * 21, 365 * 21, 376 * 64)
 # (K, N) of the nine products of a process_chunk call, in their order
 ROWMM_SITES = (("stft_re", 512, 257), ("stft_im", 512, 257), ("band", 257, 32),
@@ -573,32 +581,60 @@ def gru_step_hold(gru, args, card):
     return held
 
 
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock (MHz), as nvidia-smi reports it."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    if r.returncode != 0:
+        fail("nvidia-smi failed: " + r.stderr.strip())
+    return float(r.stdout.strip().splitlines()[0])
+
+
 def rowmm_hold(rowmm, calls, card):
     """The fixed-order product on the inputs of the nine products of one
     process_chunk call (``calls``, in ``ROWMM_SITES``' order), at each of
-    ``ROWMM_ROWS``' row counts: within ``ROWMM_REL`` of its plain version,
-    and a row's bits the same at every row count and at several places in a
-    64-row tile. Times the nine at the call's rows: the kernel, its plain
-    version and ``torch.matmul`` (cuBLAS, the same function, used nowhere in
-    the port), each the sum over the nine, and their bound; and the kernel
-    and ``torch.matmul`` at one row (the step of ``Koala.process``), queued
-    behind a spin kernel (the card's time). Returns the kernel's entry of the
+    ``ROWMM_ROWS``' row counts and at the one-row kernel's limit and one row
+    either side of it: bit for bit the first design's kernel
+    (``rowmm_simple``), and so within ``ROWMM_REL`` of its plain version;
+    the decoder's and the gate's operand also as the call gave it (a
+    permuted view, read in place); a row's bits the same at every row count
+    and at several places in a tile. Times the nine at the call's rows, at
+    64 rows (the live round) and at one (the step): the kernel that the plan
+    picks, rowmm_simple, the plain version (at the call's rows) and
+    ``torch.matmul`` (cuBLAS, the same function, used nowhere in the port),
+    each the sum over the nine, and their bound; at 64 and one row queued
+    behind a spin kernel (the card's time). At one row the bound is B's
+    bytes, and the chain of K dependent FMAs a thread (4 cycles each at the
+    card's highest clock) stands beside it. Returns the kernel's entry of the
     ``{"kernels": ...}`` line."""
     from koala_tpu_torch.profiling import time_ms
 
     if [tuple(b.shape) for _, b in calls] != [(k, n) for _, k, n in ROWMM_SITES]:
         fail("process_chunk's products were %s, not %s"
              % ([tuple(b.shape) for _, b in calls], [s[1:] for s in ROWMM_SITES]))
+    if rowmm.variants_on_card() != [v[1:] for v in rowmm.VARIANTS]:
+        fail("rowmm: the card's variants %s are not the plan's %s"
+             % (rowmm.variants_on_card(), [v[1:] for v in rowmm.VARIANTS]))
+    held_rows = sorted(set(ROWMM_ROWS) | {rowmm.ROW_MAX - 1, rowmm.ROW_MAX, rowmm.ROW_MAX + 1})
+    clock = max_sm_clock_mhz()
     sites, rel, err = {}, 0.0, 0.0
-    for (name, k, n), (a, b) in zip(ROWMM_SITES, calls):
-        a = a.reshape(-1, k)
+    for (name, k, n), (a_in, b) in zip(ROWMM_SITES, calls):
+        a = a_in.reshape(-1, k)
         m_all = a.shape[0]
         with torch.inference_mode():
             full = rowmm.rowmm(a, b)
-            for m in ROWMM_ROWS:
+            as_given = rowmm.rowmm(a_in, b).reshape(-1, n)
+            if not torch.equal(as_given, full):
+                fail("rowmm %s: the operand as the call gave it (strides %s) differs from its "
+                     "contiguous copy" % (name, a_in.stride()))
+            for m in held_rows:
                 part = a[:m]
                 got, want = rowmm.rowmm(part, b), rowmm.rowmm_ref(part, b)
+                simple = rowmm.rowmm_simple(part, b)
                 torch.cuda.synchronize()
+                if not torch.equal(got, simple):
+                    fail("rowmm %s at M = %d (%s) differs from rowmm_simple"
+                         % (name, m, rowmm.plan(m, n, k).name))
                 diff = float((got - want).abs().max())
                 rel = max(rel, diff / max(float(want.abs().max()), 1e-30))
                 err = max(err, diff)
@@ -611,47 +647,74 @@ def rowmm_hold(rowmm, calls, card):
         if rel > ROWMM_REL:
             fail("rowmm %s is %.3g from its plain version (relative; limit %g)"
                  % (name, rel, ROWMM_REL))
-        bound = rowmm.bound(m_all, k, n)
+        bound, bound64, bound1 = (rowmm.bound(m, k, n) for m in (m_all, 64, 1))
+        a64, a1 = a[:64].contiguous(), a[:1].contiguous()
         with torch.inference_mode():
             sites[name] = {
                 "shape": [m_all, k, n],
+                "plans": {str(m): rowmm.plan(m, n, k).name for m in (1, 64, m_all)},
                 "ms": time_ms(lambda: rowmm.rowmm(a, b), 20),
+                "simple_ms": time_ms(lambda: rowmm.rowmm_simple(a, b), 20),
                 "plain_ms": time_ms(lambda: rowmm.rowmm_ref(a, b), 2, 1),
                 "library_ms": time_ms(lambda: torch.matmul(a, b), 20),
                 "bound_ms": max(bound.values()), "bytes_ms": bound["bytes"],
                 "operations_ms": bound["operations"],
-                "one_row_queued_ms": time_ms(lambda: rowmm.rowmm(a[:1], b), 50, 5, queued=True),
-                "one_row_library_queued_ms": time_ms(lambda: torch.matmul(a[:1], b), 50, 5,
-                                                     queued=True)}
-    total = {key: sum(v[key] for v in sites.values())
-             for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "operations_ms",
-                         "one_row_queued_ms", "one_row_library_queued_ms")}
+                "rows_64_queued_ms": time_ms(lambda: rowmm.rowmm(a64, b), 50, 5, queued=True),
+                "rows_64_simple_queued_ms": time_ms(lambda: rowmm.rowmm_simple(a64, b), 50, 5,
+                                                    queued=True),
+                "rows_64_library_queued_ms": time_ms(lambda: torch.matmul(a64, b), 50, 5,
+                                                     queued=True),
+                "rows_64_bound_ms": max(bound64.values()),
+                "one_row_queued_ms": time_ms(lambda: rowmm.rowmm(a1, b), 50, 5, queued=True),
+                "one_row_simple_queued_ms": time_ms(lambda: rowmm.rowmm_simple(a1, b), 50, 5,
+                                                    queued=True),
+                "one_row_library_queued_ms": time_ms(lambda: torch.matmul(a1, b), 50, 5,
+                                                     queued=True),
+                "one_row_bound_ms": max(bound1.values()),
+                "one_row_chain_ms": rowmm.chain_ms(k, clock)}
+    keys = ("ms", "simple_ms", "plain_ms", "library_ms", "bytes_ms", "operations_ms",
+            "rows_64_queued_ms", "rows_64_simple_queued_ms", "rows_64_library_queued_ms",
+            "rows_64_bound_ms", "one_row_queued_ms", "one_row_simple_queued_ms",
+            "one_row_library_queued_ms", "one_row_bound_ms", "one_row_chain_ms")
+    total = {key: sum(v[key] for v in sites.values()) for key in keys}
     m_all = calls[0][0].reshape(-1, 512).shape[0]
-    print("rowmm: within %.3g (relative) of its plain version at M = %s on the nine products of "
-          "process_chunk (largest |diff| %.3g); a row's bits the same at every M and place in "
-          "a tile; the nine at M = %d: %.4f ms (plain %.4f, torch.matmul %.4f, bound %.4f ms); "
-          "at M = 1 (the step) %.4f ms queued (torch.matmul %.4f) on %s"
-          % (rel, list(ROWMM_ROWS), err, m_all, total["ms"], total["plain_ms"],
-             total["library_ms"], max(total["bytes_ms"], total["operations_ms"]),
-             total["one_row_queued_ms"], total["one_row_library_queued_ms"], card))
+    print("rowmm: bit-identical to rowmm_simple at M = %s on the nine products of process_chunk "
+          "(and on the decoder's and the gate's permuted operands as given), within %.3g "
+          "(relative) of its plain version (largest |diff| %.3g); a row's bits the same at every "
+          "M and place in a tile" % (held_rows, rel, err))
+    print("rowmm: the nine at M = %d: %.4f ms (rowmm_simple %.4f, plain %.4f, torch.matmul %.4f, "
+          "bound %.4f ms); at M = 64 queued %.4f ms (rowmm_simple %.4f, torch.matmul %.4f, bound "
+          "%.4f); at M = 1 (the step) queued %.4f ms (rowmm_simple %.4f, torch.matmul %.4f; bound "
+          "%.4f ms by bytes, chain of sum K = %d FMAs %.4f ms at %.0f MHz) on %s"
+          % (m_all, total["ms"], total["simple_ms"], total["plain_ms"], total["library_ms"],
+             max(total["bytes_ms"], total["operations_ms"]), total["rows_64_queued_ms"],
+             total["rows_64_simple_queued_ms"], total["rows_64_library_queued_ms"],
+             total["rows_64_bound_ms"], total["one_row_queued_ms"],
+             total["one_row_simple_queued_ms"], total["one_row_library_queued_ms"],
+             total["one_row_bound_ms"], sum(k for _, k, _ in ROWMM_SITES),
+             total["one_row_chain_ms"], clock, card))
     for name, v in sites.items():
-        print("  rowmm %-8s [%d, %d] @ [%d, %d]: %.4f ms, torch.matmul %.4f ms, bound %.4f ms; "
-              "one row %.4f ms queued, torch.matmul %.4f"
-              % (name, v["shape"][0], v["shape"][1], v["shape"][1], v["shape"][2], v["ms"],
-                 v["library_ms"], v["bound_ms"], v["one_row_queued_ms"],
+        print("  rowmm %-8s [%d, %d] @ [%d, %d]: %s %.4f ms (simple %.4f, torch.matmul %.4f, "
+              "bound %.4f); 64 rows %s %.4f (simple %.4f, torch.matmul %.4f); one row %s %.4f "
+              "(simple %.4f, torch.matmul %.4f) queued"
+              % (name, v["shape"][0], v["shape"][1], v["shape"][1], v["shape"][2],
+                 v["plans"][str(v["shape"][0])], v["ms"], v["simple_ms"], v["library_ms"],
+                 v["bound_ms"], v["plans"]["64"], v["rows_64_queued_ms"],
+                 v["rows_64_simple_queued_ms"], v["rows_64_library_queued_ms"],
+                 v["plans"]["1"], v["one_row_queued_ms"], v["one_row_simple_queued_ms"],
                  v["one_row_library_queued_ms"]))
     return {
         "name": "rowmm", "route": "cuda", "source": "koala_tpu_torch/csrc/rowmm.cu",
         "replaces": "none: the jnp matmuls outside any Pallas kernel "
                     "(koala_tpu/ops/stft.py:138, koala_tpu/models/mask_gru.py:205)",
-        "launches": 0, "max_abs_err": err, "max_rel_err": rel,
+        "launches": 0, "max_abs_err": err, "max_rel_err": rel, "bits_equal_simple": True,
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": max(total["bytes_ms"], total["operations_ms"]),
         "bound_by": "bytes" if total["bytes_ms"] > total["operations_ms"] else "operations",
-        "library_ms": total["library_ms"], "shape": [v["shape"] for v in sites.values()],
-        "one_row_queued_ms": total["one_row_queued_ms"],
-        "one_row_library_queued_ms": total["one_row_library_queued_ms"],
-        "held_at_rows": list(ROWMM_ROWS), "sites": sites}
+        "library_ms": total["library_ms"], "simple_ms": total["simple_ms"],
+        "shape": [v["shape"] for v in sites.values()],
+        **{key: total[key] for key in keys if key.startswith(("rows_64", "one_row"))},
+        "sm_clock_mhz": clock, "held_at_rows": held_rows, "sites": sites}
 
 
 def grad_agreement(name, got, want):
@@ -2582,7 +2645,7 @@ def surface_phase(kt, card, reset_counts, counts, pcm):
     bat = battery_streams(load_script("train_model_torch"))
     battery = bat[2]
     totals = dict.fromkeys(("floor_scan", "gru_stack", "gru_stack_hs", "engine_fused",
-                            "engine_fused_device", "rowmm"), 0)
+                            "engine_fused_device", "rowmm", "rowmm_simple"), 0)
     failures, summary, held, fused_held, front = [], {}, {}, {}, None
     with tempfile.TemporaryDirectory() as tmp:
         mmse_path = os.path.join(tmp, "mmse.pv")
@@ -2790,7 +2853,7 @@ def cuts_phase(kt, card, reset_counts, counts, pcm):
 
     battery = battery_streams(load_script("train_model_torch"))[2]
     totals = dict.fromkeys(("floor_scan", "gru_stack", "gru_stack_hs", "engine_fused",
-                            "engine_fused_device", "rowmm"), 0)
+                            "engine_fused_device", "rowmm", "rowmm_simple"), 0)
     failures, summary = [], {}
     with tempfile.TemporaryDirectory() as tmp:
         mmse_path = os.path.join(tmp, "mmse.pv")
@@ -2860,7 +2923,9 @@ def main() -> None:
                 "gru_stack_hs": (gru, "launches_hs"), "engine_fused": (engine_fused, "launches"),
                 # the device launches that the fused calls made: five a segment
                 "engine_fused_device": (engine_fused, "device_launches"),
-                "rowmm": (rowmm, "launches")}
+                "rowmm": (rowmm, "launches"),
+                # the first design's kernel: launched by no path, only to hold the others
+                "rowmm_simple": (rowmm, "simple_launches")}
 
     def reset_counts():
         for m, attr in counters.values():

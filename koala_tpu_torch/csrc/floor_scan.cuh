@@ -37,13 +37,6 @@ constexpr int FLOOR_SLABS = 4;       // the scanned one, the one being stored, t
 constexpr int FLOOR_THREADS = 128;
 constexpr int FLOOR_MOVERS = FLOOR_THREADS - FLOOR_COLS;   // threads that copy and store
 
-// 4-byte form of cp_async16, for rows that are not 16-byte aligned.
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* src, int src_bytes) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
 // vec: BN is a multiple of 4 and lb, floors are 16-byte aligned.
 static __global__ void __launch_bounds__(FLOOR_THREADS)
     floor_scan_kernel(const float* __restrict__ lb, const float* __restrict__ floor0,

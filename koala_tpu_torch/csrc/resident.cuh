@@ -12,6 +12,8 @@
 //   cp_async16     16-byte asynchronous copies into shared memory that read
 //                  through L2 only (.cg): what another block published before
 //                  a barrier is what arrives, never a stale L1 line.
+//   cp_async4      the 4-byte form (.ca), for rows that are not 16-byte
+//                  aligned.
 //   ldmatrix_x4,   the warp-level tensor-core product m16n8k16 (bf16 in, f32
 //   mma_bf16       sums) with A taken from padded rows in shared memory and B
 //                  from fragments that the caller keeps (acc_row / acc_col
@@ -21,7 +23,8 @@
 //
 // The GRU-stack kernel (gru.cu) is built from these; the tiled product of
 // the fused engine (tile_gemm.cuh) and the floor tracker (floor_scan.cuh)
-// take the copies and the tensor-core wrappers.
+// take the copies and the tensor-core wrappers, the fixed-order product
+// (rowmm.cu) the copies alone.
 
 #pragma once
 
@@ -67,6 +70,13 @@ __device__ __forceinline__ void grid_barrier_wait(const unsigned* counter, unsig
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, int src_bytes) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4-byte form of cp_async16, for rows that are not 16-byte aligned.
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* src, int src_bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 

@@ -10,26 +10,57 @@
 // bits than out of a 1-frame or a 32-frame one, and the recurrences carried
 // the difference on.
 //
-// Arithmetic: each element of C is summed by one thread, in one f32
-// register, as fmaf(a[k], b[k], acc) for k = 0, 1, ..., K - 1 in that order,
-// from acc = 0. No split-K, no tree, no tensor cores, no TF32: true float32,
-// as the port's STFT promises, and the bf16-operand products hand it values
-// already rounded to bf16. The tile shape, the K chunk and the loop are
-// compile-time constants; M and N only decide how many tiles there are.
+// Arithmetic, the promise of every kernel in this file: each element of C is
+// summed by one thread, in one f32 register, as fmaf(a[k], b[k], acc) for
+// k = 0, 1, ..., K - 1 in that order, from acc = +0. No split-K, no tree, no
+// atomics, no tensor cores, no TF32: true float32, as the port's STFT
+// promises (the bf16-operand products hand it values already rounded to
+// bf16). Whatever the tile, the thread mapping, the staging or the pipeline
+// depth, a kernel that keeps that chain gives the same bits, so the kernels
+// below give the bits of one another and of rowmm_simple_kernel, the first
+// design, kept as the yardstick that the card tests hold them to. Elements of
+// K past its end are never summed (each chunk sums only its kc live k).
 //
-// Bound on this card: at the main path's shapes (M = B x T = 24064 rows,
-// K and N of 1 to 512) the work is operations (2 M N K f32 FMA work on the
-// CUDA cores, 67 TFLOP/s): the nine products of a process_chunk call are
-// about 38 GFLOP, 0.58 ms; their bytes (each operand once, C once) take
-// about 0.1 ms. The design is the plain SIMT tiling that keeps the order
-// fixed: a block of 256 threads owns a 64 x 64 tile of C, stages 16-wide
-// K chunks of A (transposed) and B in shared memory, and each thread keeps
-// a 4 x 4 block of C in registers, reading a float4 of each operand per k.
-// Faster layouts (wgmma would change the order) are later work.
+// Bound on this card. Many rows (process_chunk: M = B x T = 24064, K and N of
+// 1 to 512): operations, 2 M N K f32 FMA work on the CUDA cores (67 TFLOP/s):
+// the nine products of a call are about 38.6 GFLOP, 0.58 ms; their bytes
+// about 0.1 ms. One row (the step): B's bytes (3.2 MB for the nine, 0.96 us)
+// and the chain of K dependent FMAs a thread (about 4.4 cycles each: about
+// 1.1 us at K = 512), besides a launch.
+//
+// Design. The kernel, tile and grid are a plain function of (M, N, K) on the
+// host (ops/kernels/rowmm.py ``plan``); the kernels read A's rows through
+// two strides, so a permuted view [B, T, K] of a [T, B, K] tensor needs no
+// copy. Operands move by cp.async in a ring of K chunks that runs ahead of
+// the sums, with one barrier a chunk. What bounds them here, as the times of
+// every variant on an H100 show (scripts/rowmm_variants_torch.py): at one
+// row each chunk of the ring costs about 0.3 us, whatever its bytes, and at
+// many rows the copy instructions compete with the FMAs; so few rows want
+// few, long chunks spread over many SMs, and many rows want few copy
+// instructions for their FMAs.
+//  - rowmm_narrow_kernel (up to 64 rows): 8 columns a block, 64 or 128 k a
+//    chunk.
+//  - rowmm_row_kernel (65 to 1024 rows): 32 columns and 16 rows a block.
+//  - rowmm_col_kernel (N = 1 at more rows): a thread a row.
+//  - rowmm_tile_kernel (over 1024 rows): a 128 x 64, 128 x 32 or 64 x 64
+//    tile of 8 x 8 or 4 x 8 elements a thread, A by 16-byte copies.
 
-#include "common.cuh"
+#include <cstdint>
+
+#include "resident.cuh"
 
 namespace {
+
+using koala::cp_async16;
+using koala::cp_async4;
+using koala::cp_async_commit;
+using koala::cp_async_wait;
+
+// ---------------------------------------------------------------------------
+// rowmm_simple_kernel: the first design (a 64 x 64 tile of 256 threads, 4 x 4
+// elements a thread, 16-wide K chunks staged by plain loads, two barriers a
+// chunk). Off the main path: the card tests and chip_smoke.py hold the
+// variants below to it bit for bit.
 
 constexpr int RM_BM = 64;                     // rows of C a block owns
 constexpr int RM_BN = 64;                     // columns of C a block owns
@@ -39,8 +70,8 @@ constexpr int RM_TN = 4;                      // columns of C a thread owns
 constexpr int RM_THREADS = (RM_BM / RM_TM) * (RM_BN / RM_TN);   // 256
 
 __global__ void __launch_bounds__(RM_THREADS)
-    rowmm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                 float* __restrict__ C, int M, int N, int K) {
+    rowmm_simple_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                        float* __restrict__ C, int M, int N, int K) {
   // A's chunk, transposed (As[k][m]); 4 floats of padding a row keep the
   // transposing stores from falling into one bank and the float4 reads aligned
   __shared__ __align__(16) float As[RM_BK][RM_BM + 4];
@@ -99,15 +130,509 @@ __global__ void __launch_bounds__(RM_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// A's rows: row r starts at a + (r / inner) * s_outer + (r % inner) * s_inner
+// floats (a contiguous [M, K]: inner = M, s_inner = K). Its K elements are
+// contiguous.
+struct RowsOfA {
+  const float* a;
+  int inner;
+  long long s_outer, s_inner;
+
+  __device__ __forceinline__ const float* row(int r) const {
+    return a + (long long)(r / inner) * s_outer + (long long)(r % inner) * s_inner;
+  }
+};
+
+// 16-byte copies of rows that are not 16-byte aligned. A row segment of n
+// floats at any 4-byte offset lies inside a 16-byte-aligned span of n + 4
+// floats (32 floats: SPAN = 36, PIECES = 9 pieces of 16 bytes): the span is
+// copied whole, and the segment read at its offset in the span (span_off). A piece that reaches past
+// ``end`` (the operand's last element + 1) copies only what lies before it and
+// fills the rest with zeros; a span may begin up to 12 bytes before the
+// operand, inside its 16-byte-aligned allocation (the wrapper checks that).
+
+constexpr int SPAN = 36;
+constexpr int PIECES = SPAN / 4;
+
+__device__ __forceinline__ const float* span_start(const float* p) {
+  return reinterpret_cast<const float*>(reinterpret_cast<uintptr_t>(p) & ~uintptr_t(15));
+}
+
+__device__ __forceinline__ int span_off(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// piece q of the span of p into dst (16-byte aligned)
+__device__ __forceinline__ void copy_piece(float* dst, const float* p, int q, const float* end) {
+  const float* src = span_start(p) + 4 * q;
+  const long long left = end - src;
+  cp_async16(dst + 4 * q, src, left >= 4 ? 16 : left > 0 ? (int)left * 4 : 0);
+}
+
+// ---------------------------------------------------------------------------
+// rowmm_row_kernel<RB, W>: some rows (a round of 8 frames, one stream's
+// 376). Block: W warps over RB * W rows and 32 columns; warp w owns rows
+// w * RB + i (i < RB), lane l column n0 + l, so a k reads one coalesced
+// segment of B's row. The copies of a chunk are spread over all W warps
+// (4-byte cp.async, 32 / W a thread for B's [32 k, 32 columns] panel, a warp
+// its own rows of A); a warp first reads its column's 32 values of B into
+// registers, then runs its RB chains over them.
+
+constexpr int ROW_KC = 32;        // k of a chunk
+constexpr int ROW_STAGES = 6;     // chunks in the ring (five in flight)
+
+template <int RB, int W>
+__global__ void __launch_bounds__(32 * W)
+    rowmm_row_kernel(RowsOfA A, const float* __restrict__ B, float* __restrict__ C, int M,
+                     int N, int K) {
+  constexpr int R = RB * W;
+  __shared__ __align__(16) float Bs[ROW_STAGES][ROW_KC][32];
+  __shared__ __align__(16) float As[ROW_STAGES][R][ROW_KC];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int r0 = blockIdx.x * R, n0 = blockIdx.y * 32;
+  const int n = n0 + lane;
+  const bool col_live = n < N;
+  const bool has_rows = r0 + w * RB < M;       // the same for the whole warp: rows past M
+                                               // only copy
+  const float* arow[RB];
+#pragma unroll
+  for (int i = 0; i < RB; ++i) {
+    const int r = r0 + w * RB + i;
+    arow[i] = r < M ? A.row(r) : nullptr;
+  }
+  const int chunks = (K + ROW_KC - 1) / ROW_KC;
+
+  // Copies of chunk c into its stage. Elements outside the matrices are not
+  // copied: their stale values reach only sums that are never stored (rows
+  // past M, columns past N) or k that are never summed.
+  auto issue = [&](int c) {
+    const int s = c % ROW_STAGES, k0 = c * ROW_KC;
+#pragma unroll
+    for (int j = 0; j < ROW_KC / W; ++j) {
+      const int kk = w + j * W, k = k0 + kk;
+      if (col_live && k < K) cp_async4(&Bs[s][kk][lane], B + (size_t)k * N + n, 4);
+    }
+    const int k = k0 + lane;
+#pragma unroll
+    for (int i = 0; i < RB; ++i)
+      if (arow[i] != nullptr && k < K) cp_async4(&As[s][w * RB + i][lane], arow[i] + k, 4);
+  };
+
+  float acc[RB];
+#pragma unroll
+  for (int i = 0; i < RB; ++i) acc[i] = 0.0f;
+
+#pragma unroll
+  for (int c = 0; c < ROW_STAGES - 1; ++c) {
+    if (c < chunks) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    // chunk c has landed (this thread's copies, then everyone's), and every
+    // warp has summed chunk c - 1, whose stage the next issue refills
+    cp_async_wait<ROW_STAGES - 2>();
+    __syncthreads();
+    if (c + ROW_STAGES - 1 < chunks) issue(c + ROW_STAGES - 1);
+    cp_async_commit();
+    if (!has_rows) continue;
+    const int s = c % ROW_STAGES;
+    const int kc = min(ROW_KC, K - c * ROW_KC);
+    if (kc == ROW_KC) {
+      float b[ROW_KC];
+#pragma unroll
+      for (int kk = 0; kk < ROW_KC; ++kk) b[kk] = Bs[s][kk][lane];
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+#pragma unroll
+        for (int q = 0; q < ROW_KC; q += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(&As[s][w * RB + i][q]);
+          acc[i] = fmaf(a.x, b[q], acc[i]);
+          acc[i] = fmaf(a.y, b[q + 1], acc[i]);
+          acc[i] = fmaf(a.z, b[q + 2], acc[i]);
+          acc[i] = fmaf(a.w, b[q + 3], acc[i]);
+        }
+      }
+    } else {
+      for (int kk = 0; kk < kc; ++kk) {
+        const float b = Bs[s][kk][lane];
+#pragma unroll
+        for (int i = 0; i < RB; ++i) acc[i] = fmaf(As[s][w * RB + i][kk], b, acc[i]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (col_live) {
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const int r = r0 + w * RB + i;
+      if (r < M) C[(size_t)r * N + n] = acc[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// rowmm_narrow_kernel<ROWS, KC, STAGES>: the fewest rows (the step, live
+// rounds). At one row the chain is short (K FMAs) and the time goes to
+// moving B into the SMs: every chunk of the ring costs a fixed share of it,
+// so chunks are long (64 or 128 k), and B is spread over as many SMs as the
+// columns allow: a block owns 8 columns (N = 257: 33 blocks) and ROWS rows.
+// Its NAR_WARPS warps all copy; lane l of warp w runs the chain of column
+// n0 + l % 8 and row 4 w + l / 8; a warp whose rows lie past M only copies.
+
+constexpr int NAR_COLS = 8;
+constexpr int NAR_SLOTS = 32 / NAR_COLS;     // row slots a warp
+constexpr int NAR_WARPS = 4;
+constexpr int NAR_THREADS = 32 * NAR_WARPS;
+
+template <int ROWS, int KC, int STAGES>
+__global__ void __launch_bounds__(NAR_THREADS)
+    rowmm_narrow_kernel(RowsOfA A, const float* __restrict__ B, float* __restrict__ C, int M,
+                        int N, int K) {
+  constexpr int W = NAR_WARPS, R = ROWS, THREADS = NAR_THREADS;
+  constexpr int A_COPIES = (R + W - 1) / W;                      // rows of A a warp copies
+  static_assert(R % NAR_SLOTS == 0 && R <= W * NAR_SLOTS, "rows");
+  constexpr int B_COPIES = KC * NAR_COLS / THREADS;
+  // KC + 4 floats a row of A's chunk: aligned float4 reads, a warp's four rows
+  // in distinct banks
+  constexpr int LDA = KC + 4;
+  static_assert(B_COPIES * THREADS == KC * NAR_COLS && KC % 32 == 0, "copies");
+  __shared__ __align__(16) float Bs[STAGES][KC][NAR_COLS];
+  __shared__ __align__(16) float As[STAGES][R][LDA];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int col = lane % NAR_COLS, row = w * NAR_SLOTS + lane / NAR_COLS;
+  const int r0 = blockIdx.x * R, n0 = blockIdx.y * NAR_COLS, n = n0 + col;
+  const bool warp_rows = w * NAR_SLOTS < R && r0 + w * NAR_SLOTS < M;   // the whole warp's
+  // a warp copies whole 32-k rows of A (rows w + j W), a lane a k
+  const float* arow[A_COPIES];
+#pragma unroll
+  for (int j = 0; j < A_COPIES; ++j) {
+    const int r = r0 + w + j * W;
+    arow[j] = w + j * W < R && r < M ? A.row(r) : nullptr;
+  }
+  const int chunks = (K + KC - 1) / KC;
+
+  auto issue = [&](int c) {
+    const int s = c % STAGES, k0 = c * KC;
+#pragma unroll
+    for (int j = 0; j < B_COPIES; ++j) {
+      const int e = threadIdx.x + j * THREADS, kk = e / NAR_COLS, cc = e % NAR_COLS;
+      const int k = k0 + kk;
+      if (k < K && n0 + cc < N) cp_async4(&Bs[s][kk][cc], B + (size_t)k * N + n0 + cc, 4);
+    }
+#pragma unroll
+    for (int h = 0; h < KC / 32; ++h) {
+      const int k = k0 + 32 * h + lane;
+#pragma unroll
+      for (int j = 0; j < A_COPIES; ++j)
+        if (arow[j] != nullptr && k < K)
+          cp_async4(&As[s][w + j * W][32 * h + lane], arow[j] + k, 4);
+    }
+  };
+
+  float acc = 0.0f;
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < chunks) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (c + STAGES - 1 < chunks) issue(c + STAGES - 1);
+    cp_async_commit();
+    if (!warp_rows) continue;
+    const int s = c % STAGES;
+    const int kc = min(KC, K - c * KC);
+    if (kc == KC) {
+      // 32 k at a time: the column's values into registers, then the chains
+#pragma unroll
+      for (int h = 0; h < KC; h += 32) {
+        float b[32];
+#pragma unroll
+        for (int kk = 0; kk < 32; ++kk) b[kk] = Bs[s][h + kk][col];
+#pragma unroll
+        for (int q = 0; q < 32; q += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(&As[s][row][h + q]);
+          acc = fmaf(a.x, b[q], acc);
+          acc = fmaf(a.y, b[q + 1], acc);
+          acc = fmaf(a.z, b[q + 2], acc);
+          acc = fmaf(a.w, b[q + 3], acc);
+        }
+      }
+    } else {
+      for (int kk = 0; kk < kc; ++kk) {
+        acc = fmaf(As[s][row][kk], Bs[s][kk][col], acc);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (n < N && row < R && r0 + row < M) C[(size_t)(r0 + row) * N + n] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// rowmm_col_kernel: N = 1. A thread per row, COL_ROWS rows a block; each
+// row's 32 k of a chunk and B's column arrive as 16-byte copies of their
+// spans, spread over the block.
+
+constexpr int COL_ROWS = 64;
+constexpr int COL_KC = 32;
+constexpr int COL_STAGES = 4;
+
+__global__ void __launch_bounds__(COL_ROWS)
+    rowmm_col_kernel(RowsOfA A, const float* __restrict__ B, float* __restrict__ C, int M,
+                     int K, long long a_extent) {
+  // [row][span]: 36 floats a row (16-byte aligned for the copies); a warp's
+  // reads at one k fall four rows to a bank, a small cost beside the copies
+  __shared__ __align__(16) float As[COL_STAGES][COL_ROWS][SPAN];
+  __shared__ __align__(16) float Bs[COL_STAGES][SPAN];
+  __shared__ const float* rowp[COL_ROWS];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * COL_ROWS;
+  rowp[tid] = r0 + tid < M ? A.row(r0 + tid) : nullptr;
+  __syncthreads();
+  const float* a_end = A.a + a_extent;
+  const float* b_end = B + K;
+  const int chunks = (K + COL_KC - 1) / COL_KC;
+  // the rows whose pieces this thread copies: piece e = tid + j COL_ROWS of
+  // the block's COL_ROWS * PIECES is piece e % PIECES of row e / PIECES (a
+  // thread copies PIECES pieces a chunk)
+  const float* prow[PIECES];
+#pragma unroll
+  for (int j = 0; j < PIECES; ++j) prow[j] = rowp[(tid + j * COL_ROWS) / PIECES];
+
+  auto issue = [&](int c) {
+    const int s = c % COL_STAGES, k0 = c * COL_KC;
+#pragma unroll
+    for (int j = 0; j < PIECES; ++j) {
+      const int e = tid + j * COL_ROWS;
+      if (prow[j] != nullptr)
+        copy_piece(&As[s][e / PIECES][0], prow[j] + k0, e % PIECES, a_end);
+    }
+    if (tid < PIECES) copy_piece(&Bs[s][0], B + k0, tid, b_end);
+  };
+
+  // every chunk starts at a multiple of 32 floats: the offsets are the rows'
+  const int a_off = rowp[tid] != nullptr ? span_off(rowp[tid]) : 0;
+  const int b_off = span_off(B);
+  float acc = 0.0f;
+#pragma unroll
+  for (int c = 0; c < COL_STAGES - 1; ++c) {
+    if (c < chunks) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<COL_STAGES - 2>();
+    __syncthreads();
+    if (c + COL_STAGES - 1 < chunks) issue(c + COL_STAGES - 1);
+    cp_async_commit();
+    const int s = c % COL_STAGES;
+    const int kc = min(COL_KC, K - c * COL_KC);
+#pragma unroll
+    for (int kk = 0; kk < COL_KC; ++kk)
+      if (kk < kc) acc = fmaf(As[s][tid][a_off + kk], Bs[s][b_off + kk], acc);
+  }
+  cp_async_wait<0>();
+  if (r0 + tid < M) C[r0 + tid] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// rowmm_tile_kernel<BM, BN, TM, TN, BK, STAGES>: the tile with A staged row
+// by row: each row's BK k of a chunk arrive as 16-byte copies of their span
+// (BK + 4 floats, PA pieces), a third of the 4-byte copies' instructions; a
+// thread reads its TM rows (ty + TY i) one float a k at their offsets. B as
+// in rowmm_tile_kernel.
+
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN), (BM / TM) * (BN / TN) >= 256 ? 2 : 3)
+    rowmm_tile_kernel(RowsOfA A, const float* __restrict__ B, float* __restrict__ C, int M,
+                       int N, int K, long long a_extent) {
+  constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY;
+  constexpr int GN = TN / 4;
+  constexpr int LDA = BK + 4, PA = LDA / 4;               // floats and pieces a row's span
+  constexpr int A_COPIES = (BM * PA + THREADS - 1) / THREADS;
+  static_assert(TN % 4 == 0 && BK % 4 == 0, "tile");
+  static_assert((BK * BN) % THREADS == 0 && (BK * BN / 4) % THREADS == 0, "copies of B");
+  __shared__ __align__(16) float As[STAGES][BM][LDA];
+  __shared__ __align__(16) float Bs[STAGES][BK][BN];
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const float* a_end = A.a + a_extent;
+  // the rows whose pieces this thread copies, as offsets from A (-1: past M)
+  int acopy[A_COPIES];
+#pragma unroll
+  for (int j = 0; j < A_COPIES; ++j) {
+    const int e = tid + j * THREADS, r = m0 + e / PA;
+    acopy[j] = e < BM * PA && r < M ? (int)(A.row(r) - A.a) : -1;
+  }
+  // where this thread's rows sit in their spans (every chunk starts BK floats,
+  // a multiple of 16 bytes, past the last)
+  int aread[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + ty + TY * i;
+    aread[i] = r < M ? span_off(A.row(r)) : 0;
+  }
+  const bool b16 = N % 4 == 0 && (reinterpret_cast<uintptr_t>(B) & 15) == 0;
+  const int chunks = (K + BK - 1) / BK;
+
+  auto issue = [&](int c) {
+    const int s = c % STAGES, k0 = c * BK;
+#pragma unroll
+    for (int j = 0; j < A_COPIES; ++j) {
+      const int e = tid + j * THREADS;
+      if (acopy[j] >= 0) copy_piece(&As[s][e / PA][0], A.a + acopy[j] + k0, e % PA, a_end);
+    }
+    if (b16) {
+#pragma unroll
+      for (int j = 0; j < BK * BN / 4 / THREADS; ++j) {
+        const int e = tid + j * THREADS, kk = e / (BN / 4), nn = 4 * (e % (BN / 4));
+        const int k = k0 + kk, n = n0 + nn;
+        if (k < K) cp_async16(&Bs[s][kk][nn], B + (size_t)k * N + n, n < N ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK * BN / THREADS; ++j) {
+        const int e = tid + j * THREADS, kk = e / BN, nn = e % BN;
+        const int k = k0 + kk, n = n0 + nn;
+        if (k < K && n < N) cp_async4(&Bs[s][kk][nn], B + (size_t)k * N + n, 4);
+      }
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < chunks) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (c + STAGES - 1 < chunks) issue(c + STAGES - 1);
+    cp_async_commit();
+    const int s = c % STAGES;
+    const int kc = min(BK, K - c * BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      if (kk < kc) {
+        float a[TM], b[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = As[s][ty + TY * i][aread[i] + kk];
+#pragma unroll
+        for (int g = 0; g < GN; ++g) {
+          const float4 v = *reinterpret_cast<const float4*>(&Bs[s][kk][g * (BN / GN) + tx * 4]);
+          b[4 * g] = v.x; b[4 * g + 1] = v.y; b[4 * g + 2] = v.z; b[4 * g + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + ty + TY * i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + (j / 4) * (BN / GN) + tx * 4 + j % 4;
+      if (n < N) C[(size_t)r * N + n] = acc[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The variants, by the number the host's plan gives (ops/kernels/rowmm.py
+// VARIANTS mirrors this table; koala_rowmm_variant reports it).
+
+struct Variant {
+  int rows, cols, threads;
+};
+
+constexpr Variant VARIANTS[] = {
+    {4, NAR_COLS, NAR_THREADS},       // 0 narrow<4,128,4>: up to 4 rows, 128 k a chunk
+    {16, NAR_COLS, NAR_THREADS},      // 1 narrow<16,64,6>: 64 k a chunk
+    {16, 32, 128},                    // 2 row<4,4>
+    {COL_ROWS, 1, COL_ROWS},          // 3 col (N = 1)
+    {128, 64, 128},                   // 4 tile<128,64>: 8 x 8 a thread, BK 16
+    {128, 32, 128},                   // 5 tile<128,32>: 8 x 4, BK 16
+    {64, 64, 128},                    // 6 tile<64,64>: 4 x 8, BK 16
+};
+constexpr int N_VARIANTS = sizeof(VARIANTS) / sizeof(VARIANTS[0]);
+constexpr int COL = 3;
+
 }  // namespace
 
-// A [M, K], B [K, N], C [M, N], all float32, contiguous, row-major.
-extern "C" int koala_rowmm(const void* a, const void* b, void* c, int M, int N, int K,
-                           void* stream) {
+// rowmm_simple_kernel: A [M, K], B [K, N], C [M, N], all float32,
+// contiguous, row-major.
+extern "C" int koala_rowmm_simple(const void* a, const void* b, void* c, int M, int N, int K,
+                                  void* stream) {
   if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((M + RM_BM - 1) / RM_BM, (N + RM_BN - 1) / RM_BN);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  rowmm_kernel<<<grid, RM_THREADS, 0, (cudaStream_t)stream>>>(
+  rowmm_simple_kernel<<<grid, RM_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)a, (const float*)b, (float*)c, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// Rows, columns and threads of a variant's block: out[0..2]. Nonzero for a
+// variant that does not exist.
+extern "C" int koala_rowmm_variant(int variant, int* out) {
+  if (variant < 0 || variant >= N_VARIANTS) return (int)cudaErrorInvalidValue;
+  out[0] = VARIANTS[variant].rows;
+  out[1] = VARIANTS[variant].cols;
+  out[2] = VARIANTS[variant].threads;
+  return 0;
+}
+
+// C [M, N] (contiguous) = A @ B (B [K, N] contiguous; A's rows as RowsOfA
+// says: inner, s_outer, s_inner; a_extent floats from A's first element past
+// its last), by ``variant`` on a grid of grid_rows x grid_cols blocks, which
+// must cover C as the variant's block does.
+extern "C" int koala_rowmm(const void* a, const void* b, void* c, int M, int N, int K,
+                           int a_inner, long long a_outer_stride, long long a_inner_stride,
+                           long long a_extent, int variant, int grid_rows, int grid_cols,
+                           void* stream) {
+  if (M < 1 || N < 1 || K < 0 || a_inner < 1 || variant < 0 || variant >= N_VARIANTS)
+    return (int)cudaErrorInvalidValue;
+  const Variant v = VARIANTS[variant];
+  if (grid_rows != (M + v.rows - 1) / v.rows || grid_cols != (N + v.cols - 1) / v.cols ||
+      grid_cols > 65535 || (variant == COL && N != 1) || a_extent >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const RowsOfA A{(const float*)a, a_inner, a_outer_stride, a_inner_stride};
+  const float* B = (const float*)b;
+  float* C = (float*)c;
+  const dim3 grid(grid_rows, grid_cols);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case 0: rowmm_narrow_kernel<4, 128, 4><<<grid, v.threads, 0, s>>>(A, B, C, M, N, K); break;
+    case 1: rowmm_narrow_kernel<16, 64, 6><<<grid, v.threads, 0, s>>>(A, B, C, M, N, K); break;
+    case 2: rowmm_row_kernel<4, 4><<<grid, v.threads, 0, s>>>(A, B, C, M, N, K); break;
+    case 3: rowmm_col_kernel<<<grid, v.threads, 0, s>>>(A, B, C, M, K, a_extent); break;
+    case 4:
+      rowmm_tile_kernel<128, 64, 8, 8, 16, 3><<<grid, v.threads, 0, s>>>(A, B, C, M, N, K,
+                                                                         a_extent);
+      break;
+    case 5:
+      rowmm_tile_kernel<128, 32, 8, 4, 16, 3><<<grid, v.threads, 0, s>>>(A, B, C, M, N, K,
+                                                                         a_extent);
+      break;
+    default:
+      rowmm_tile_kernel<64, 64, 4, 8, 16, 3><<<grid, v.threads, 0, s>>>(A, B, C, M, N, K,
+                                                                        a_extent);
+      break;
+  }
   return (int)cudaGetLastError();
 }

@@ -211,14 +211,16 @@ class MaskGRU(nn.Module):
     def rounded(self, name: str, cfg) -> torch.Tensor:
         """Weight ``name`` (a dotted state_dict key) rounded to the compute
         dtype, held as float32 (the right operand of ``_mm``). Cached for
-        inference; rounded live when a graph is recorded (the gradient passes
-        through the cast)."""
+        inference, contiguous (the fixed-order kernel reads it as it lies);
+        rounded live when a graph is recorded (the gradient passes through
+        the cast)."""
         w = self.get_parameter(name)
         if cfg.get("compute_dtype") != "bfloat16":
             return w
         if _records_graph(w):
             return w.bfloat16().float()
-        return self.derived("round:" + name, lambda: w.detach().bfloat16().float())
+        return self.derived("round:" + name,
+                            lambda: w.detach().bfloat16().float().contiguous())
 
     def training_graph(self) -> bool:
         """True when a forward pass must record a graph to the weights."""

@@ -87,6 +87,7 @@ def build(verbose: bool = False) -> str:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points: (argument types, result type). Every pointer and the stream
 # are c_void_p so that ctypes never cuts a 64-bit address; a launching entry
@@ -99,7 +100,11 @@ _SIGNATURES = {
     "koala_engine_fused": ([_P], _I),   # pointer to struct FusedArgs (host memory)
     "koala_engine_fused_smem": ([_I, _I], ctypes.c_size_t),
     "koala_empty_launch": ([_P], _I),
-    "koala_rowmm": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    # a, b, c, M, N, K, A's rows (inner, outer stride, inner stride, extent),
+    # variant, grid
+    "koala_rowmm": ([_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _P], _I),
+    "koala_rowmm_simple": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "koala_rowmm_variant": ([_I, _P], _I),
 }
 
 

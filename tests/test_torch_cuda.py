@@ -726,16 +726,84 @@ def test_rowmm_matches_plain_at_the_call_sites(cuda_device, k, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", [(512, 257), (384, 1)])
 def test_rowmm_row_bits_do_not_depend_on_the_rows(cuda_device, k, n):
-    """A row of the product has the same bits at M = 1, 7, 64 and 24064 and
-    wherever it lies in a 64-row tile."""
+    """A row of the product has the same bits at M = 1, 7, 64 and 24064, at
+    the one-row kernel's limit and one row either side of it (another
+    kernel above it), and wherever it lies in a tile."""
     a = _randn(42, (376 * 64, k), 1.0, cuda_device)
     b = _randn(43, (k, n), 0.1, cuda_device)
     full = rowmm.rowmm(a, b)
-    for m in (1, 7, 64, 376 * 64):
+    for m in (1, 7, 64, rowmm.ROW_MAX - 1, rowmm.ROW_MAX, rowmm.ROW_MAX + 1, 376 * 64):
         for start in (0, 5, 63, 64 + 17, 376 * 64 - m):
             if start + m <= a.shape[0]:
                 got = rowmm.rowmm(a[start:start + m].contiguous(), b)
                 assert torch.equal(got, full[start:start + m]), (m, start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", ROWMM_SITES)
+def test_rowmm_equals_the_first_design_bit_for_bit(cuda_device, k, n):
+    """The kernel that the plan picks gives the bits of rowmm_simple (the
+    first design, one fmaf chain an element as every variant) at every row
+    count of the main paths and at the one-row kernel's limit, one row
+    either side of it."""
+    b = _randn(47, (k, n), 0.1, cuda_device)
+    for m in ROWMM_ROWS + (rowmm.ROW_MAX - 1, rowmm.ROW_MAX, rowmm.ROW_MAX + 1):
+        a = _randn(48 + m, (m, k), 1.0, cuda_device)
+        before = (rowmm.launches, rowmm.simple_launches)
+        got, want = rowmm.rowmm(a, b), rowmm.rowmm_simple(a, b)
+        assert (rowmm.launches, rowmm.simple_launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(got, want), (m, k, n, rowmm.plan(m, n, k).name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (3, 3, 1), (21, 33, 1), (600, 31, 1), (5, 7, 5),
+                                   (64, 17, 257), (300, 331, 161), (700, 257, 33),
+                                   (3000, 5, 200), (24064, 329, 1)])
+def test_rowmm_every_variant_at_ragged_k_and_n(cuda_device, m, k, n):
+    """Every variant, whatever the plan would pick, gives rowmm_simple's bits
+    where K is no multiple of 4 nor of a K chunk, and at N = 1."""
+    a = _randn(50, (m, k), 1.0, cuda_device)
+    b = _randn(51, (k, n), 0.1, cuda_device)
+    want = rowmm.rowmm_simple(a, b)
+    for v in range(len(rowmm.VARIANTS)):
+        if v == rowmm.COL and n != 1:
+            continue
+        got = rowmm.launch(a, b, rowmm.plan_for(v, m, n))
+        assert torch.equal(got, want), (m, k, n, rowmm.VARIANTS[v][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(384, 257), (384, 1), (512, 257), (257, 32)])
+def test_rowmm_reads_unaligned_and_permuted_operands(cuda_device, k, n):
+    """Operands that start one float past an aligned allocation, and A as a
+    [B, T, K] view of a [T, B, K] tensor (the decoder's and the gate's input),
+    give the bits of their contiguous, aligned copies, without a copy of A."""
+    t_len, batch = 45, 7
+    y = _randn(52, (t_len, batch, k), 1.0, cuda_device)
+    b = _randn(53, (k, n), 0.1, cuda_device)
+    view = y.transpose(0, 1)                                     # [B, T, K], permuted
+    want = rowmm.rowmm_simple(view.contiguous(), b)
+    assert torch.equal(rowmm.rowmm(view, b), want)
+    base_a = torch.empty(view.numel() + 1, device=cuda_device)
+    base_b = torch.empty(b.numel() + 1, device=cuda_device)
+    off_a = base_a[1:].view(batch, t_len, k).copy_(view)
+    off_b = base_b[1:].view(k, n).copy_(b)
+    assert off_a.data_ptr() % 16 == 4 and off_b.data_ptr() % 16 == 4
+    for m in (1, batch * t_len):
+        for v in range(len(rowmm.VARIANTS)):
+            if v == rowmm.COL and n != 1:
+                continue
+            got = rowmm.launch(off_a.reshape(-1, k)[:m], off_b, rowmm.plan_for(v, m, n))
+            assert torch.equal(got, want.reshape(-1, n)[:m]), (m, rowmm.VARIANTS[v][0])
+    with torch.inference_mode():
+        assert torch.equal(rowmm.matmul(view, b), want)
+
+
+@pytest.mark.cuda
+def test_rowmm_variants_on_the_card_are_the_plans(cuda_device):
+    """csrc/rowmm.cu's table of variants (rows, columns, threads of a block),
+    read through koala_rowmm_variant, is the one the plan computes grids by."""
+    assert rowmm.variants_on_card() == [v[1:] for v in rowmm.VARIANTS]
 
 
 @pytest.mark.cuda
@@ -746,6 +814,13 @@ def test_rowmm_refuses_what_it_does_not_take(cuda_device):
                          (a.t(), b[:8]), (a, b.cpu())):
         with pytest.raises(ValueError):
             rowmm.rowmm(bad_a, bad_b)
+    # B transposed, A with three row strides: refused, not copied
+    three = _randn(46, (4, 5, 6, 16), 1.0, cuda_device).permute(1, 0, 2, 3)
+    for bad_a, bad_b in ((a, _randn(45, (4, 16), 1.0, cuda_device).t()), (three, b)):
+        with pytest.raises(ValueError):
+            rowmm.rowmm(bad_a, bad_b)
+    with pytest.raises(ValueError):
+        rowmm.rowmm_simple(a.t(), b[:8])
 
 
 @pytest.mark.cuda

@@ -121,9 +121,26 @@ def test_rowmm_raises_on_bad_shapes_and_dtypes(a_shape, b_shape, dtype):
         rowmm.rowmm(a, b)
 
 
-def test_census_counts_rowmm_as_a_port_kernel(tmp_path):
-    """scripts/bench_sweep_torch.py's census groups the fixed-order product
-    with the port's kernels, not with the GEMMs."""
+# the names of the fixed-order product's kernels in a trace (csrc/rowmm.cu)
+ROWMM_TRACE_NAMES = [
+    "void (anonymous namespace)::rowmm_narrow_kernel<4, 128, 4>((anonymous namespace)::RowsOfA, "
+    "float const*, float*, int, int, int)",
+    "void (anonymous namespace)::rowmm_row_kernel<4, 4>((anonymous namespace)::RowsOfA, "
+    "float const*, float*, int, int, int)",
+    "(anonymous namespace)::rowmm_col_kernel((anonymous namespace)::RowsOfA, float const*, "
+    "float*, int, int, long long)",
+    "void (anonymous namespace)::rowmm_tile_kernel<128, 64, 8, 8, 16, 3>((anonymous "
+    "namespace)::RowsOfA, float const*, float*, int, int, int, long long)",
+    "(anonymous namespace)::rowmm_simple_kernel(float const*, float const*, float*, int, int, "
+    "int)",
+]
+
+
+@pytest.mark.parametrize("name", ROWMM_TRACE_NAMES,
+                         ids=["narrow", "row", "col", "tile", "simple"])
+def test_census_counts_rowmm_as_a_port_kernel(tmp_path, name):
+    """scripts/bench_sweep_torch.py's census groups every kernel of the
+    fixed-order product with the port's kernels, not with the GEMMs."""
     import importlib.util
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -131,9 +148,7 @@ def test_census_counts_rowmm_as_a_port_kernel(tmp_path):
         "bench_sweep_torch", os.path.join(here, "scripts", "bench_sweep_torch.py"))
     sweep = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sweep)
-    events = [{"ph": "X", "cat": "kernel", "dur": 12,
-               "name": "(anonymous namespace)::rowmm_kernel(float const*, float const*, float*, "
-                       "int, int, int)"},
+    events = [{"ph": "X", "cat": "kernel", "dur": 12, "name": name},
               {"ph": "X", "cat": "kernel", "name": "sm90_xmma_gemm_f32f32_f32f32", "dur": 9}]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
