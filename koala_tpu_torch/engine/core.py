@@ -12,7 +12,9 @@ Two execution shapes: ``step`` (one 256-sample hop per stream) and
 input on a card through the fused engine kernel (ops/kernels/engine_fused.py)
 and whatever T leaves past a multiple of 8 through ``sequence``. Every
 function runs on the device its tensors lie on. Output is delayed by exactly
-DELAY_SAMPLE = 256 samples.
+DELAY_SAMPLE = 256 samples. Under a profiler ``sequence`` records the span
+``engine.sequence`` (count ``hops``) and, inside it, ``engine.model`` around
+the model's ``apply_sequence`` (count ``frames``); see ``profiling.span``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..constants import FRAME_LENGTH
 from ..models.registry import get_model
 from ..ops import stft as stft_ops
@@ -75,8 +78,9 @@ class Engine:
                           hops.narrow(t_axis, 0, hops.shape[t_axis] - 1)], dim=t_axis)
         frames = torch.cat([prev, hops], dim=-1)                 # [*, T, 512]
         re, im = stft_ops.stft_frame(frames)
-        model_state, mask = self.model.apply_sequence(
-            params, state["model"], re, im, self.config)
+        with profiling.span("engine.model", frames=hops.shape[t_axis]):
+            model_state, mask = self.model.apply_sequence(
+                params, state["model"], re, im, self.config)
         synth = stft_ops.istft_frame(re * mask, im * mask)      # [*, T, 512]
         heads = synth[..., :FRAME_LENGTH]
         tails = synth[..., FRAME_LENGTH:]
@@ -90,7 +94,8 @@ class Engine:
         return new_state, out, mask, (re, im)
 
     def sequence(self, params, state, hops):
-        new_state, out, _, _ = self.sequence_full(params, state, hops)
+        with profiling.span("engine.sequence", hops=hops.shape[-2]):
+            new_state, out, _, _ = self.sequence_full(params, state, hops)
         return new_state, out
 
     def _fused_enabled(self, params, hops) -> bool:

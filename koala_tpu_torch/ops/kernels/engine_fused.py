@@ -308,10 +308,13 @@ def fused_sequence(params, state, hops, cfg, stage_ms=None):
     ``WORKSPACE_BYTES``. CPU tensors take the plain version; CUDA tensors
     launch the kernels (or raise). ``stage_ms``: a dict that receives the
     summed milliseconds of each of ``STAGES``. For measurements only: with it
-    every segment synchronises with the card before the call goes on."""
+    every segment synchronises with the card before the call goes on.
+    Under a profiler the segment walk records the span ``engine.fused``
+    (counts ``hops`` and ``segments``; the plain version walks one)."""
     global launches, device_launches
     if hops.device.type == "cpu":
-        return fused_sequence_ref(params, state, hops, cfg)
+        with profiling.span("engine.fused", hops=hops.shape[-2], segments=1):
+            return fused_sequence_ref(params, state, hops, cfg)
     if hops.dim() != 3 or hops.shape[-1] != FRAME_LENGTH:
         raise ValueError("fused_sequence: hops must be [B, T, 256], got %s"
                          % (tuple(hops.shape),))
@@ -373,30 +376,32 @@ def fused_sequence(params, state, hops, cfg, stage_ms=None):
     if stage_ms is not None:
         args.stage_ms = ctypes.addressof(times)
     lib = _build.library()
-    for start in range(0, t_len, seg):
-        stop = min(t_len, start + seg)
-        first = hops[:, start]
-        # the hop before the segment: the state's carry, then the input itself
-        before = carry if start == 0 else hops[:, start - 1]
-        ola_next = torch.empty_like(ola)
-        floor_next = torch.empty_like(floor)
-        h_next = torch.empty_like(h_lbh)
-        counters = torch.zeros(plan.groups, dtype=torch.int32, device=dev)
-        args.T = stop - start
-        args.hops, args.out = first.data_ptr(), out[:, start].data_ptr()
-        args.carry0, args.carry_stride = before.data_ptr(), before.stride(0)
-        args.ola0, args.floor0, args.h0 = ola.data_ptr(), floor.data_ptr(), h_lbh.data_ptr()
-        args.ola_out, args.floor_out = ola_next.data_ptr(), floor_next.data_ptr()
-        args.h_out, args.counters = h_next.data_ptr(), counters.data_ptr()
-        # the entry stops at the first stage that fails: a status of 0 is five launches
-        _build.check(lib.koala_engine_fused(ctypes.byref(args)), "koala_engine_fused")
-        if start == 0:
-            launches += 1
-        device_launches += len(STAGES)
-        if stage_ms is not None:
-            for name, ms in zip(STAGES, times):
-                stage_ms[name] = stage_ms.get(name, 0.0) + float(ms)
-        ola, floor, h_lbh = ola_next, floor_next, h_next
+    starts = range(0, t_len, seg)
+    with profiling.span("engine.fused", hops=t_len, segments=len(starts)):
+        for start in starts:
+            stop = min(t_len, start + seg)
+            first = hops[:, start]
+            # the hop before the segment: the state's carry, then the input itself
+            before = carry if start == 0 else hops[:, start - 1]
+            ola_next = torch.empty_like(ola)
+            floor_next = torch.empty_like(floor)
+            h_next = torch.empty_like(h_lbh)
+            counters = torch.zeros(plan.groups, dtype=torch.int32, device=dev)
+            args.T = stop - start
+            args.hops, args.out = first.data_ptr(), out[:, start].data_ptr()
+            args.carry0, args.carry_stride = before.data_ptr(), before.stride(0)
+            args.ola0, args.floor0, args.h0 = ola.data_ptr(), floor.data_ptr(), h_lbh.data_ptr()
+            args.ola_out, args.floor_out = ola_next.data_ptr(), floor_next.data_ptr()
+            args.h_out, args.counters = h_next.data_ptr(), counters.data_ptr()
+            # the entry stops at the first stage that fails: a status of 0 is five launches
+            _build.check(lib.koala_engine_fused(ctypes.byref(args)), "koala_engine_fused")
+            if start == 0:
+                launches += 1
+            device_launches += len(STAGES)
+            if stage_ms is not None:
+                for name, ms in zip(STAGES, times):
+                    stage_ms[name] = stage_ms.get(name, 0.0) + float(ms)
+            ola, floor, h_lbh = ola_next, floor_next, h_next
     new_state = {"input_carry": hops[:, -1, :].clone(), "ola": ola,
                  "model": {"h": h_lbh.movedim(0, 1).contiguous(),
                            "floor": floor[:, :lay.nb].contiguous()}}

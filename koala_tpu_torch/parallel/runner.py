@@ -13,6 +13,12 @@ process group.
 For a run over several processes, initialise ``torch.distributed`` first and
 give each process its own card (``make_mesh(["gpu:%d" % rank])``); each
 process feeds its slice of every global batch.
+
+Under a profiler a batch records the spans (``profiling.span``)
+``runner.issue`` (the call, carrying the runner's batch number), inside it
+``runner.upload`` (``shard_batch``; counts ``bytes`` and ``pageable_bytes``,
+the rows whose host memory is not page-locked) and one ``runner.launch`` a
+device (its state and ``Engine.sequence_fast``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import profiling
 from ..constants import FRAME_LENGTH, SAMPLE_RATE
 from ..device import device_scope
 from ..engine.core import make_engine
@@ -64,18 +71,34 @@ class CorpusRunner:
         kind = config.get("kind", "mask_gru")
         self.engine = make_engine(kind, config)
         self.params = replicate(self.mesh, params_io.params_from_numpy(tree, "cpu", kind))
+        self.batch_number = 0           # batches issued; each batch's spans carry it
+
+    def _upload_counts(self, hops: np.ndarray) -> Dict[str, int]:
+        """``runner.upload``'s counts while spans are recorded: the bytes of
+        this process's rows, and of those whose host memory is pageable (the
+        host stages them before the card can copy them)."""
+        if not profiling.recording():
+            return {}
+        lo, hi = self.mesh.local_rows(self.global_batch)
+        rows = hops[lo:hi]
+        pinned = torch.from_numpy(rows).is_pinned()
+        return {"bytes": rows.nbytes, "pageable_bytes": 0 if pinned else rows.nbytes}
 
     @torch.inference_mode()
     def _issue(self, pcm) -> List[torch.Tensor]:
         """Issue every device's block; -> one [B/n, T, 256] output a device."""
-        pcm = np.asarray(pcm, np.float32)
-        hops = pcm.reshape(self.global_batch, self.frames, FRAME_LENGTH)
-        outs = []
-        for d, p, block in zip(self.mesh.devices, self.params, shard_batch(self.mesh, hops)):
-            with device_scope(d):
-                state = self.engine.init_state((block.shape[0],), d)
-                _, out = self.engine.sequence_fast(p, state, block)
-            outs.append(out)
+        self.batch_number += 1
+        with profiling.span("runner.issue", batch=self.batch_number):
+            pcm = np.asarray(pcm, np.float32)
+            hops = pcm.reshape(self.global_batch, self.frames, FRAME_LENGTH)
+            with profiling.span("runner.upload", **self._upload_counts(hops)):
+                blocks = shard_batch(self.mesh, hops)
+            outs = []
+            for d, p, block in zip(self.mesh.devices, self.params, blocks):
+                with device_scope(d), profiling.span("runner.launch"):
+                    state = self.engine.init_state((block.shape[0],), d)
+                    _, out = self.engine.sequence_fast(p, state, block)
+                outs.append(out)
         return outs
 
     def enhance_batch(self, pcm) -> torch.Tensor:

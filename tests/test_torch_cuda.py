@@ -921,3 +921,84 @@ def test_server_rounds_of_every_shape_equal_process_chunk(cuda_device):
         np.testing.assert_array_equal(got, want, err_msg="chunk %d" % chunk)
         if chunk != 8:                           # 40 frames leave 8 past the last 32
             assert serve.graph_replays > replays
+
+
+# -- the program's spans on the card ------------------------------------------
+
+def _profiled(fn):
+    """Run ``fn`` under a CPU + CUDA profiler (the card synchronised at the
+    end); -> the card's events (kernels, copies, annotations) and the spans."""
+    import time
+
+    from koala_tpu_torch import profiling
+
+    torch.cuda.synchronize()                    # nothing queued before runs inside
+    t0 = time.time_ns()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    card = [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return card, profiling.spans(t0, time.time_ns())
+
+
+@pytest.mark.cuda
+def test_fused_span_counts_the_segments_walked(cuda_device, bundled):
+    """``sequence_fast`` at B = 300 x 107 hops: the fused entry walks 104
+    hops in ceil(104 / segment_hops) segments (two: 99 + 5), the 3-hop tail
+    goes through ``engine.sequence``."""
+    tree, cfg = bundled
+    engine = make_engine("mask_gru", cfg)
+    params = params_io.params_from_numpy(tree, cuda_device)
+    hops = _randn(13, (300, 107, 256), 0.05, cuda_device)
+    state = engine.init_state((300,), cuda_device)
+    engine.sequence_fast(params, state, hops)                  # built and warm
+    _, spans = _profiled(lambda: engine.sequence_fast(params, state, hops))
+    lay = engine_fused.Layout(cfg)
+    seg = engine_fused.segment_hops(300, engine_fused.frame_bytes(lay.hidden, lay.nbp))
+    (fused,) = [s for s in spans if s.name == "engine.fused"]
+    (tail,) = [s for s in spans if s.name == "engine.sequence"]
+    assert fused.counts == {"hops": 104, "segments": -(-104 // seg)} and seg == 99
+    assert tail.counts == {"hops": 3} and fused.end_ns <= tail.start_ns
+
+
+def _runner_batch(pinned):
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh
+
+    b, samples = 64, 375 * 256
+    runner = CorpusRunner(params_io.default_model_path(), global_batch=b,
+                          utterance_samples=samples, mesh=make_mesh(["gpu:0"]))
+    host = torch.empty((b, samples), dtype=torch.float32, pin_memory=pinned)
+    host.copy_(_randn(14, (b, samples), 0.05, "cpu"))
+    return runner, host.numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pinned", [True, False])
+def test_runner_upload_counts_pageable_bytes(cuda_device, pinned):
+    """A page-locked batch (as a loader with ``pin_memory=True`` hands it
+    over) reports no pageable bytes; numpy's own memory reports them all."""
+    runner, pcm = _runner_batch(pinned)
+    runner.enhance_batch(pcm)
+    _, spans = _profiled(lambda: runner.enhance_batch(pcm))
+    (up,) = [s for s in spans if s.name == "runner.upload"]
+    assert up.counts == {"bytes": pcm.nbytes, "pageable_bytes": 0 if pinned else pcm.nbytes}
+    assert {s.name for s in spans} == {"runner.issue", "runner.upload", "runner.launch",
+                                       "engine.fused", "engine.sequence", "engine.model"}
+
+
+@pytest.mark.cuda
+def test_spans_add_no_event_on_the_card(cuda_device, monkeypatch):
+    """A profiled ``CorpusRunner`` batch (the fused entry and the tail) has
+    the same card events, by name, with the spans recorded as with the
+    recorder's check patched off."""
+    from koala_tpu_torch import profiling
+
+    runner, pcm = _runner_batch(False)
+    runner.enhance_batch(pcm)
+    on, spans = _profiled(lambda: runner.enhance_batch(pcm))
+    monkeypatch.setattr(profiling, "recording", lambda: False)
+    off, none = _profiled(lambda: runner.enhance_batch(pcm))
+    assert len(spans) == 6 and none == []
+    assert sorted(on) == sorted(off) and any("gru" in n for n in on)

@@ -90,3 +90,36 @@ def test_wash_corpus_report_matches_jax(model, request, rng):
     assert report["chips"] == 4 and report["batches"] == want["batches"] >= 1
     assert report["audio_seconds"] == want["audio_seconds"] > 0
     assert report["audio_seconds_per_second"] > 0
+
+
+def test_corpus_runner_records_its_spans(mmse_model, rng):
+    """Under a profiler one batch records ``runner.issue`` holding
+    ``runner.upload`` (its bytes, all pageable from a numpy batch) and
+    ``runner.launch``, which holds ``engine.sequence`` and, in it,
+    ``engine.model``; every span carries the batch's number."""
+    import time
+
+    from koala_tpu_torch import profiling
+
+    b, t = 4, 6
+    pcm = (rng.standard_normal((b, t * FRAME_LENGTH)) * 0.1).astype(np.float32)
+    runner = CorpusRunner(mmse_model, global_batch=b, utterance_samples=t * FRAME_LENGTH,
+                          mesh=make_mesh(["cpu"]))
+    runner.enhance_batch(pcm)                   # unprofiled: records nothing
+    t0 = time.time_ns()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        runner.enhance_batch(pcm)
+    spans = {s.name: s for s in profiling.spans(t0, time.time_ns())}
+    assert set(spans) == {"runner.issue", "runner.upload", "runner.launch",
+                          "engine.sequence", "engine.model"}
+    for inner, outer in (("runner.upload", "runner.issue"), ("runner.launch", "runner.issue"),
+                         ("engine.sequence", "runner.launch"),
+                         ("engine.model", "engine.sequence")):
+        s, o = spans[inner], spans[outer]
+        assert s.parent == outer and o.start_ns <= s.start_ns <= s.end_ns <= o.end_ns
+    assert spans["runner.upload"].end_ns <= spans["runner.launch"].start_ns
+    assert spans["runner.upload"].counts == {"bytes": b * t * FRAME_LENGTH * 4,
+                                             "pageable_bytes": b * t * FRAME_LENGTH * 4}
+    assert spans["engine.sequence"].counts == {"hops": t}
+    assert spans["engine.model"].counts == {"frames": t}
+    assert {s.batch for s in spans.values()} == {2} and runner.batch_number == 2

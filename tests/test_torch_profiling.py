@@ -1,6 +1,8 @@
 """The port's observability module (koala_tpu_torch/profiling.py): the
-analogs of tests/test_profiling.py, and a trace of a CPU sequence call."""
+analogs of tests/test_profiling.py, a trace of a CPU sequence call, and the
+program's spans (recorded only under a profiler, on the profiler's clock)."""
 
+import collections
 import json
 import os
 import time
@@ -23,17 +25,6 @@ def test_log_toggle(capsys):
     err = capsys.readouterr().err
     assert "hello from koala" in err
     assert "should not see this" not in err
-
-
-def test_throughput_meter():
-    m = profiling.ThroughputMeter()
-    m.add_frames(256)
-    m.add_frames(256)
-    r = m.report
-    assert r["frames"] == 512
-    assert r["device_steps"] == 2
-    assert abs(r["audio_seconds"] - 512 * 256 / 16000) < 1e-9
-    assert r["audio_seconds_per_second"] > 0
 
 
 def test_machine_state():
@@ -90,3 +81,134 @@ def test_wall_ms_counts_the_timed_calls_after_the_warmup():
 
     ms = profiling.wall_ms(fn, 3, warmup=2, device=torch.device("cpu"))
     assert len(calls) == 5 and ms >= 2.0
+
+
+CPU = [torch.profiler.ProfilerActivity.CPU]
+
+
+def test_no_span_is_recorded_without_a_profiler():
+    assert not profiling.recording()
+    t0 = time.time_ns()
+    with profiling.span("test.off", hops=3) as s:
+        assert s is None
+    assert profiling.spans(t0) == []
+
+
+def test_nested_spans_carry_parent_batch_and_counts():
+    t0 = time.time_ns()
+    with torch.profiler.profile(activities=CPU):
+        assert profiling.recording()
+        with profiling.span("test.outer", batch=7):
+            with profiling.span("test.inner", hops=5, segments=2):
+                pass
+            with profiling.span("test.second"):
+                pass
+    got = {s.name: s for s in profiling.spans(t0, time.time_ns())}
+    outer, inner, second = got["test.outer"], got["test.inner"], got["test.second"]
+    assert outer.parent is None and outer.batch == 7 and outer.counts == {}
+    assert inner.parent == second.parent == "test.outer"
+    assert inner.batch == second.batch == 7
+    assert inner.counts == {"hops": 5, "segments": 2}
+    assert outer.start_ns <= inner.start_ns <= inner.end_ns <= second.start_ns
+    assert second.end_ns <= outer.end_ns
+    assert [s.name for s in profiling.spans(t0, time.time_ns())] == [
+        "test.outer", "test.inner", "test.second"]
+    # a stretch that ends before the outer span does keeps only what lies in it
+    assert "test.outer" not in {s.name for s in profiling.spans(t0, outer.end_ns - 1)}
+
+
+def test_spans_share_the_profilers_clock():
+    """A span around an operator contains that operator's interval as the
+    profiler's own events give it."""
+    with torch.profiler.profile(activities=CPU) as prof:
+        with profiling.span("test.add"):
+            torch.ones(1000) + 1
+    s = next(s for s in profiling.spans() if s.name == "test.add")
+    adds = [e for e in prof.profiler.kineto_results.events() if e.name() == "aten::add"]
+    assert len(adds) == 1
+    start = adds[0].start_ns()
+    assert s.start_ns <= start <= start + adds[0].duration_ns() <= s.end_ns
+
+
+def test_trace_writes_the_spans_on_their_own_track(tmp_path):
+    with profiling.trace(str(tmp_path)) as log_dir:
+        with profiling.span("test.traced", batch=3, hops=4):
+            torch.ones(1000) + 1
+    with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    mine = [e for e in events if e.get("cat") == "span"]
+    assert [e["name"] for e in mine] == ["test.traced"]
+    add = next(e for e in events if e.get("name") == "aten::add")
+    span = mine[0]
+    assert span["args"] == {"hops": 4, "parent": None, "batch": 3}
+    # the same time base as the profiler's events: the span holds the operator
+    assert span["ts"] <= add["ts"] and add["ts"] + add["dur"] <= span["ts"] + span["dur"]
+    assert span["pid"] not in {e.get("pid") for e in events if e.get("cat") != "span"
+                               and e.get("ph") != "M"}
+    track = [e for e in events if e.get("ph") == "M" and e.get("pid") == span["pid"]]
+    assert track and track[0]["args"]["name"] == profiling.SPAN_TRACK
+
+
+def test_span_buffer_drops_its_oldest_and_counts_them(monkeypatch):
+    monkeypatch.setattr(profiling, "_records", collections.deque(maxlen=4))
+    dropped = profiling.spans_dropped
+    with torch.profiler.profile(activities=CPU):
+        for i in range(6):
+            with profiling.span("test.ring", i=i):
+                pass
+    assert [s.counts["i"] for s in profiling.spans()] == [2, 3, 4, 5]
+    assert profiling.spans_dropped == dropped + 2
+
+
+def test_spans_from_many_threads_are_all_kept_or_counted(monkeypatch):
+    """Threads (more than cores) close spans into a small buffer at once,
+    the interpreter switching threads often: every span is kept or counted
+    as dropped, and each keeps its own thread's parent. (A profiler's state
+    is the thread's own, so the recorder's check is patched on here.)"""
+    import sys
+    import threading
+
+    monkeypatch.setattr(profiling, "_records", collections.deque(maxlen=64))
+    monkeypatch.setattr(profiling, "recording", lambda: True)
+    dropped = profiling.spans_dropped
+    workers, each = 2 * (os.cpu_count() or 1) + 2, 200
+
+    def work(i):
+        for _ in range(each):
+            with profiling.span("test.thread", batch=i):
+                with profiling.span("test.leaf"):
+                    pass
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    kept = profiling.spans()
+    assert len(kept) == 64
+    assert len(kept) + profiling.spans_dropped - dropped == workers * each * 2
+    assert all(s.parent == "test.thread" for s in kept if s.name == "test.leaf")
+
+
+def test_fused_plain_version_records_one_segment():
+    """On the CPU the fused entry runs its plain version: one ``engine.fused``
+    span of the call's hops in one segment."""
+    from koala_tpu_torch.engine.stream import load_model
+    from koala_tpu_torch.models.params_io import default_model_path
+    from koala_tpu_torch.ops.kernels.engine_fused import fused_sequence
+
+    engine, params = load_model(default_model_path(), "cpu")
+    hops = torch.as_tensor(np.random.default_rng(1).standard_normal((2, 8, 256))
+                           .astype(np.float32) * 0.1)
+    t0 = time.time_ns()
+    with torch.profiler.profile(activities=CPU):
+        fused_sequence(params, engine.init_state((2,), "cpu"), hops, engine.config)
+    (s,) = [s for s in profiling.spans(t0) if s.name == "engine.fused"]
+    assert s.counts == {"hops": 8, "segments": 1}
