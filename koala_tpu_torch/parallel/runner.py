@@ -14,11 +14,19 @@ For a run over several processes, initialise ``torch.distributed`` first and
 give each process its own card (``make_mesh(["gpu:%d" % rank])``); each
 process feeds its slice of every global batch.
 
+A batch's upload (``upload.Uploader``) does not wait for the card: on a
+card its copies run on a stream of their own into one of two input buffers,
+pageable rows staged through a ring of page-locked slots, so it overlaps the
+kernels of the batch before. ``enhance_batch`` returns once the caller's
+array has been read, and the caller may overwrite it at once.
+
 Under a profiler a batch records the spans (``profiling.span``)
 ``runner.issue`` (the call, carrying the runner's batch number), inside it
-``runner.upload`` (``shard_batch``; counts ``bytes`` and ``pageable_bytes``,
-the rows whose host memory is not page-locked) and one ``runner.launch`` a
-device (its state and ``Engine.sequence_fast``).
+``runner.upload`` (counts ``bytes``; ``pageable_bytes``, the rows whose host
+memory is not page-locked; ``staged_bytes``, those that went through the
+ring, all of them on a card and none on the CPU; ``ring_waits``, the times
+the host waited for a slot's DMA) and one ``runner.launch`` a device (its
+state and ``Engine.sequence_fast``).
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ from ..constants import FRAME_LENGTH, SAMPLE_RATE
 from ..device import device_scope
 from ..engine.core import make_engine
 from ..models import params_io
-from .mesh import Mesh, make_mesh, replicate, shard_batch
+from .mesh import Mesh, make_mesh, replicate
+from .upload import Uploader
 
 
 def _synchronize(mesh: Mesh) -> None:
@@ -72,17 +81,7 @@ class CorpusRunner:
         self.engine = make_engine(kind, config)
         self.params = replicate(self.mesh, params_io.params_from_numpy(tree, "cpu", kind))
         self.batch_number = 0           # batches issued; each batch's spans carry it
-
-    def _upload_counts(self, hops: np.ndarray) -> Dict[str, int]:
-        """``runner.upload``'s counts while spans are recorded: the bytes of
-        this process's rows, and of those whose host memory is pageable (the
-        host stages them before the card can copy them)."""
-        if not profiling.recording():
-            return {}
-        lo, hi = self.mesh.local_rows(self.global_batch)
-        rows = hops[lo:hi]
-        pinned = torch.from_numpy(rows).is_pinned()
-        return {"bytes": rows.nbytes, "pageable_bytes": 0 if pinned else rows.nbytes}
+        self.uploader = Uploader(self.mesh.devices)
 
     @torch.inference_mode()
     def _issue(self, pcm) -> List[torch.Tensor]:
@@ -91,14 +90,20 @@ class CorpusRunner:
         with profiling.span("runner.issue", batch=self.batch_number):
             pcm = np.asarray(pcm, np.float32)
             hops = pcm.reshape(self.global_batch, self.frames, FRAME_LENGTH)
-            with profiling.span("runner.upload", **self._upload_counts(hops)):
-                blocks = shard_batch(self.mesh, hops)
+            with profiling.span("runner.upload") as span:
+                lo, hi = self.mesh.local_rows(self.global_batch)
+                rows = np.ascontiguousarray(hops[lo:hi])
+                blocks, counts = self.uploader.upload(rows)
+                if span is not None:
+                    pageable = 0 if torch.from_numpy(rows).is_pinned() else rows.nbytes
+                    span.counts.update(bytes=rows.nbytes, pageable_bytes=pageable, **counts)
             outs = []
             for d, p, block in zip(self.mesh.devices, self.params, blocks):
                 with device_scope(d), profiling.span("runner.launch"):
                     state = self.engine.init_state((block.shape[0],), d)
                     _, out = self.engine.sequence_fast(p, state, block)
                 outs.append(out)
+            self.uploader.release()
         return outs
 
     def enhance_batch(self, pcm) -> torch.Tensor:

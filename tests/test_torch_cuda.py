@@ -978,12 +978,19 @@ def _runner_batch(pinned):
 @pytest.mark.parametrize("pinned", [True, False])
 def test_runner_upload_counts_pageable_bytes(cuda_device, pinned):
     """A page-locked batch (as a loader with ``pin_memory=True`` hands it
-    over) reports no pageable bytes; numpy's own memory reports them all."""
+    over) reports no pageable bytes and stages none through the ring (its
+    DMA reads the caller's memory); numpy's own memory reports them all
+    pageable, and all staged. ``ring_waits`` counts the host's waits for a
+    slot."""
     runner, pcm = _runner_batch(pinned)
     runner.enhance_batch(pcm)
     _, spans = _profiled(lambda: runner.enhance_batch(pcm))
     (up,) = [s for s in spans if s.name == "runner.upload"]
-    assert up.counts == {"bytes": pcm.nbytes, "pageable_bytes": 0 if pinned else pcm.nbytes}
+    counts = dict(up.counts)
+    waits = counts.pop("ring_waits")
+    assert counts == {"bytes": pcm.nbytes, "pageable_bytes": 0 if pinned else pcm.nbytes,
+                      "staged_bytes": 0 if pinned else pcm.nbytes}
+    assert isinstance(waits, int) and waits >= 0 and (waits == 0 or not pinned)
     assert {s.name for s in spans} == {"runner.issue", "runner.upload", "runner.launch",
                                        "engine.fused", "engine.sequence", "engine.model"}
 
@@ -1002,3 +1009,77 @@ def test_spans_add_no_event_on_the_card(cuda_device, monkeypatch):
     off, none = _profiled(lambda: runner.enhance_batch(pcm))
     assert len(spans) == 6 and none == []
     assert sorted(on) == sorted(off) and any("gru" in n for n in on)
+
+
+def _ring_batch_rows(samples):
+    """A batch size whose bytes pass the whole ring and are no multiple of
+    a slot: the ring wraps, and its last chunk is ragged."""
+    from koala_tpu_torch.parallel import upload
+
+    b = upload.SLOTS * upload.SLOT_BYTES // (samples * 4) + 3
+    assert b * samples * 4 > upload.SLOTS * upload.SLOT_BYTES
+    assert (b * samples * 4) % upload.SLOT_BYTES
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pinned", [True, False])
+def test_runner_batches_equal_sequence_fast_alone(cuda_device, pinned):
+    """Batches A, B, A, C run back to back (a reused input buffer or
+    ring slot would show) each equal ``Engine.sequence_fast`` run alone on
+    that batch, bit for bit; each caller's array is overwritten as soon as
+    ``enhance_batch`` returns, which must not change its output."""
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh
+
+    samples = 375 * 256
+    b = _ring_batch_rows(samples)
+    runner = CorpusRunner(params_io.default_model_path(), global_batch=b,
+                          utterance_samples=samples, mesh=make_mesh(["gpu:0"]))
+    base = [_randn(20 + i, (b, samples), 0.05, "cpu").numpy() for i in range(3)]
+    order = [0, 1, 0, 2]
+    outs = []
+    for k in order:
+        host = torch.empty((b, samples), dtype=torch.float32, pin_memory=pinned)
+        host.copy_(torch.from_numpy(base[k]))
+        pcm = host.numpy()
+        outs.append(runner.enhance_batch(pcm))
+        pcm[:] = 7.0                            # the caller reuses its array at once
+    engine, params = runner.engine, runner.params[0]
+    with torch.inference_mode():
+        for k, out in zip(order, outs):
+            hops = torch.as_tensor(base[k].reshape(b, 375, 256), device=cuda_device)
+            _, want = engine.sequence_fast(params, engine.init_state((b,), cuda_device), hops)
+            assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_runner_copies_run_beside_the_kernels(cuda_device, tmp_path):
+    """In a profiled pair of pageable batches, every host-to-card copy of
+    the batch runs on a stream other than the kernels': the second batch's
+    upload is not queued behind the first batch's kernels."""
+    import json
+
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh, upload
+
+    samples = 375 * 256
+    b = _ring_batch_rows(samples)
+    runner = CorpusRunner(params_io.default_model_path(), global_batch=b,
+                          utterance_samples=samples, mesh=make_mesh(["gpu:0"]))
+    pcm = [_randn(30 + i, (b, samples), 0.05, "cpu").numpy() for i in range(2)]
+    runner.enhance_batch(pcm[0])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for x in pcm:
+            runner.enhance_batch(x)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["args"]["stream"] for e in events if e.get("cat") == "kernel"}
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]
+              and e["args"].get("bytes", 0) >= 1 << 16]
+    # the profiler may lose the first copy of a stretch: at least the second
+    # batch's chunks are there
+    assert len(copies) >= -(-b * samples * 4 // upload.SLOT_BYTES)
+    assert kernels and not kernels & {e["args"]["stream"] for e in copies}

@@ -94,7 +94,8 @@ def test_wash_corpus_report_matches_jax(model, request, rng):
 
 def test_corpus_runner_records_its_spans(mmse_model, rng):
     """Under a profiler one batch records ``runner.issue`` holding
-    ``runner.upload`` (its bytes, all pageable from a numpy batch) and
+    ``runner.upload`` (its bytes, all pageable from a numpy batch, none
+    staged through the page-locked ring on the CPU) and
     ``runner.launch``, which holds ``engine.sequence`` and, in it,
     ``engine.model``; every span carries the batch's number."""
     import time
@@ -119,7 +120,44 @@ def test_corpus_runner_records_its_spans(mmse_model, rng):
         assert s.parent == outer and o.start_ns <= s.start_ns <= s.end_ns <= o.end_ns
     assert spans["runner.upload"].end_ns <= spans["runner.launch"].start_ns
     assert spans["runner.upload"].counts == {"bytes": b * t * FRAME_LENGTH * 4,
-                                             "pageable_bytes": b * t * FRAME_LENGTH * 4}
+                                             "pageable_bytes": b * t * FRAME_LENGTH * 4,
+                                             "staged_bytes": 0, "ring_waits": 0}
     assert spans["engine.sequence"].counts == {"hops": t}
     assert spans["engine.model"].counts == {"frames": t}
     assert {s.batch for s in spans.values()} == {2} and runner.batch_number == 2
+
+
+@pytest.mark.parametrize("model", ["mmse_model", "untrained_model"])
+def test_cpu_mesh_upload_is_a_plain_copy(model, request, rng):
+    """A CPU mesh's runner takes its blocks by ``.to()``: no copy stream, no
+    input buffers, no ring, ``staged_bytes`` 0; batches A, B, A each equal
+    ``Engine.sequence_fast`` run alone on each device's block."""
+    import time
+
+    from koala_tpu_torch import profiling
+    from koala_tpu_torch.engine.core import make_engine
+    from koala_tpu_torch.models import params_io
+
+    path = request.getfixturevalue(model)
+    b, t = 8, 6
+    a, c = ((rng.standard_normal((b, t * FRAME_LENGTH)) * 0.1).astype(np.float32)
+            for _ in range(2))
+    runner = CorpusRunner(path, global_batch=b, utterance_samples=t * FRAME_LENGTH,
+                          mesh=make_mesh(CPU4))
+    assert runner.uploader.lanes == [None] * 4
+    t0 = time.time_ns()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        outs = [runner.enhance_batch(x) for x in (a, c, a)]
+    ups = [s for s in profiling.spans(t0, time.time_ns()) if s.name == "runner.upload"]
+    assert [s.counts["staged_bytes"] for s in ups] == [0, 0, 0]
+    assert runner.uploader.ring == []
+
+    tree, config = params_io.load_params(path)
+    kind = config.get("kind", "mask_gru")
+    engine = make_engine(kind, config)
+    params = params_io.params_from_numpy(tree, "cpu", kind)
+    for x, out in zip((a, c, a), outs):
+        blocks = torch.from_numpy(x.reshape(b, t, FRAME_LENGTH)).split(b // 4)
+        want = torch.cat([engine.sequence_fast(params, engine.init_state((2,), "cpu"), blk)[1]
+                          for blk in blocks])
+        assert torch.equal(out, want)
