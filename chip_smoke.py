@@ -164,11 +164,22 @@
 11. ``scripts/make_corpus_torch.py`` (small tapes, the whole dev battery)
    and ``scripts/make_fixtures_torch.py`` into a temporary directory, twice:
    byte-identical runs, every WAV 93680 samples.
-12. Prints one ``{"kernels": [...]}`` line (five entries: each kernel's
+12. FullSubNet (``models/fullsubnet/fullsubnet_random.pv``) and its LSTM-cell kernel
+   (``csrc/lstm.cu``): the kernel against its plain version at each of the
+   model's four widths at 1, 64, 257 and the benchmark's rows (2048 for the
+   full band, 526,336 for the sub-band), a row's bits the same at every row
+   count, and each width's time beside its bound, its plain version's and
+   the library's (a ``lstm ...`` line each); one stream's ``Koala.process``
+   bit for bit its row of ``CorpusRunner.enhance_batch`` at B = 64; the
+   ``StreamingServer`` bit for bit ``Koala.process``; ``mask_gru`` and
+   ``mmse`` with their masks handed over as (mask, 0) bit for bit as real
+   masks; a ``{"fullsubnet": ...}`` JSON line.
+13. Prints one ``{"kernels": [...]}`` line (six entries: each kernel's
    launches by path and in all; ``rowmm``'s times are the sum over the nine
    products at 376 x 64 rows, beside ``rowmm_simple``'s and
    ``torch.matmul``'s, with the same at 64 rows and one, and
-   ``bits_equal_simple``), the card's name and power limit, and, last,
+   ``bits_equal_simple``; ``lstm_cell``'s the sum over a frame's four
+   layer-steps at B = 2048), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero. Without a CUDA card, or without the
@@ -2886,6 +2897,201 @@ def cuts_phase(kt, card, reset_counts, counts, pcm):
     return totals
 
 
+# FullSubNet's phase: the LSTM kernel's widths (kx, H) and the rows it takes at
+# the benchmark's batch of 2048 streams (the full band a row a stream, the
+# sub-band 257)
+LSTM_SHAPES = (("fullband", 257, 512, 2048), ("fullband", 512, 512, 2048),
+               ("subband", 32, 384, 2048 * 257), ("subband", 384, 384, 2048 * 257))
+LSTM_ATOL = 2e-5               # h' and c' against the plain version (sums in another order)
+FSN_B = 64                     # the corpus runner's batch that one stream's process is held to
+
+
+def lstm_library_cell(x, h, c, w_ih, w_hh, b_ih, b_hh):
+    """An LSTM layer-step from library calls (cuBLAS products on bf16
+    operands, torch's elementwise gates): the yardstick of the kernel's time."""
+    gates = (torch.matmul(x.bfloat16(), w_ih.t().bfloat16()).float()
+             + torch.matmul(h.bfloat16(), w_hh.t().bfloat16()).float() + b_ih + b_hh)
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+def lstm_case(lstm, kx, h, rows, dev):
+    """Weights at PyTorch's default scale and a [rows, 2, H] state, as the
+    model hands over one layer's rows: (x, h, c, w, b, (w_ih, w_hh, b_ih, b_hh))."""
+    g = torch.Generator().manual_seed(kx * 1000 + h)
+    raw = tuple(((torch.rand(shape, generator=g) * 2 - 1) / h ** 0.5).to(dev)
+                for shape in ((4 * h, kx), (4 * h, h), (4 * h,), (4 * h,)))
+    w, b = lstm.stack_weights(*raw)
+    state = torch.randn(rows, 2, h, device=dev)
+    return torch.randn(rows, kx, device=dev), state[:, 1], state[:, 0] * 2, w, b, raw
+
+
+def fullsubnet_phase(kt, dev, card):
+    """Phase 12: FullSubNet (models/fullsubnet.py) and its LSTM-cell kernel
+    (csrc/lstm.cu). The kernel against its plain version at each of the
+    model's four widths, at 1, 64 and the benchmark's rows (2048 full-band,
+    526,336 sub-band), a row's bits the same at every row count, and each
+    width's time beside its bound, the plain version's and the library's
+    (cuBLAS bf16 products and torch's elementwise gates); one stream's
+    ``Koala.process`` bit for bit its row of ``CorpusRunner.enhance_batch``
+    at B = 64; the ``StreamingServer`` (full-chunk and single-frame rounds)
+    bit for bit ``Koala.process``; ``mask_gru`` and ``mmse`` with their masks
+    handed to the engine as (mask, 0) bit for bit as real masks. Returns the
+    kernel's entry of the ``kernels`` line."""
+    from koala_tpu_torch.models import mmse as mmse_model
+    from koala_tpu_torch.models import params_io
+    from koala_tpu_torch.engine.core import make_engine
+    from koala_tpu_torch.ops.kernels import lstm
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh
+    from koala_tpu_torch.profiling import time_ms
+    from koala_tpu_torch.serve import StreamingServer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    model = os.path.join(here, "models", "fullsubnet", "fullsubnet_random.pv")
+    lstm.launches = 0
+    rows_out, worst = [], 0.0
+    for band, kx, h, big in LSTM_SHAPES:
+        x, h0, c0, w, b, raw = lstm_case(lstm, kx, h, big, dev)
+        full_h, full_c = lstm.lstm_cell(x, h0, c0, w, b)
+        for rows in (1, 64, 257, big):
+            part_h, part_c = lstm.lstm_cell(x[:rows], h0[:rows], c0[:rows], w, b)
+            if not (torch.equal(part_h, full_h[:rows]) and torch.equal(part_c, full_c[:rows])):
+                fail("lstm %s kx %d: a row's bits at %d rows differ from %d rows"
+                     % (band, kx, rows, big))
+            ref_h, ref_c = lstm.lstm_cell_ref(x[:rows], h0[:rows], c0[:rows], w, b)
+            err = max(float((part_h - ref_h).abs().max()), float((part_c - ref_c).abs().max()))
+            worst = max(worst, err)
+            if not err < LSTM_ATOL:
+                fail("lstm %s kx %d at %d rows: %.3g from the plain version"
+                     % (band, kx, rows, err))
+        out_h, out_c = torch.empty_like(full_h), torch.empty_like(full_c)
+        ms = time_ms(lambda: lstm.lstm_cell(x, h0, c0, w, b, out_h, out_c), 5)
+        plain_ms = time_ms(lambda: lstm.lstm_cell_ref(x, h0, c0, w, b), 1, 1)
+        library_ms = time_ms(lambda: lstm_library_cell(x, h0, c0, *raw), 5)
+        bound = lstm.bound(big, kx, h)
+        flops = 2 * big * (kx + h) * 4 * h
+        rows_out.append({"band": band, "kx": kx, "H": h, "rows": big, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
+                         "tflops": flops / ms / 1e9, "plan": list(lstm.plan(big, h))})
+        print("lstm %s kx %d H %d rows %d: ms %.4f bound_ms %.4f (%s) plain_ms %.2f library_ms "
+              "%.4f, %.1f TFLOP/s, max|err| %.3g on %s"
+              % (band, kx, h, big, ms, max(bound.values()), max(bound, key=bound.get), plain_ms,
+                 library_ms, flops / ms / 1e9, err, card), flush=True)
+        del x, h0, c0, full_h, full_c, out_h, out_c
+
+    # one stream's Koala.process against its row of the corpus runner's batch
+    pcm = mix_streams(375 * 256)[:FSN_B]
+    runner = CorpusRunner(model, global_batch=FSN_B, utterance_samples=375 * 256,
+                          mesh=make_mesh(["gpu:0"]))
+    before = lstm.launches
+    out = runner.enhance_batch(pcm.astype(np.float32) / 32768.0)
+    torch.cuda.synchronize()
+    runner_launches = lstm.launches - before
+    if runner_launches != 4 * 375:
+        fail("the corpus runner's batch made %d LSTM launches, not 4 a hop" % runner_launches)
+    rows = np.clip(np.round(out[:2].reshape(2, -1).cpu().numpy().astype(np.float64) * 32768.0),
+                   -32768, 32767).astype(np.int16)
+    process = []
+    before = lstm.launches
+    for s in range(2):
+        k = kt.create(ACCESS_KEY, model_path=model, device="gpu")
+        process.append(np.concatenate([k.process(pcm[s, i:i + 256])
+                                       for i in range(0, pcm.shape[1], 256)]))
+        k.delete()
+        if not np.array_equal(process[s], rows[s]):
+            fail("fullsubnet: stream %d's Koala.process is %d LSB from its row of the corpus "
+                 "runner" % (s, int(np.abs(process[s].astype(np.int32) - rows[s]).max())))
+    process_launches = lstm.launches - before
+    print("fullsubnet: Koala.process (2 streams x 375 frames, %d LSTM launches) bit for bit "
+          "the rows of CorpusRunner.enhance_batch at B = %d (%d launches) on %s"
+          % (process_launches, FSN_B, runner_launches, card))
+
+    # the server: uneven pushes, so that rounds of full chunks and of single
+    # frames (the captured step graph) both run
+    n = 100 * 256
+    server = StreamingServer(ACCESS_KEY, model_path=model, device="gpu", num_streams=2,
+                             chunk_frames=8)
+    try:
+        for s in range(2):
+            server.push(s, pcm[s, :(37 + 13 * s) * 256])
+        time.sleep(0.5)
+        for s in range(2):
+            server.push(s, pcm[s, (37 + 13 * s) * 256:n])
+        for s in range(2):
+            got, deadline = [], time.time() + 120
+            while sum(len(g) for g in got) < n and time.time() < deadline:
+                chunk = server.pull(s)
+                if len(chunk):
+                    got.append(chunk)
+                else:
+                    time.sleep(0.005)
+            got = np.concatenate(got) if got else np.zeros((0,), np.int16)
+            if not np.array_equal(got, process[s][:n]):
+                fail("fullsubnet: the server's stream %d is not Koala.process's" % s)
+    finally:
+        server.close()
+    print("fullsubnet: StreamingServer (chunks of 8, uneven pushes) bit for bit Koala.process "
+          "on %s" % card)
+
+    # a real mask and the same mask as (mask, 0): the same bits on the card
+    bundled = params_io.load_params(params_io.default_model_path())
+    for kind, (tree, cfg) in (("mask_gru", bundled),
+                              ("mmse", ({"empty": np.zeros((1,), np.float32)},
+                                        dict(mmse_model.DEFAULT_CONFIG)))):
+        eng = make_engine(kind, cfg)
+        params = params_io.params_from_numpy(tree, dev, kind)
+        hops = torch.as_tensor(pcm[:8, :64 * 256].reshape(8, 64, 256) / 32768.0,
+                               dtype=torch.float32, device=dev)
+        real_model = eng.model
+
+        def run():
+            with torch.inference_mode():
+                _, seq = eng.sequence(params, eng.init_state((8,), dev), hops)
+                st, outs = eng.init_state((8,), dev), []
+                for t in range(4):
+                    st, o = eng.step(params, st, hops[:, t])
+                    outs.append(o)
+            return seq, torch.stack(outs, 1)
+
+        real = run()
+
+        class Complex:
+            init_state = real_model.init_state
+
+            @staticmethod
+            def step(*a):
+                st, m = real_model.step(*a)
+                return st, (m, torch.zeros_like(m))
+
+            @staticmethod
+            def apply_sequence(*a):
+                st, m = real_model.apply_sequence(*a)
+                return st, (m, torch.zeros_like(m))
+        eng.model = Complex
+        try:
+            cplx = run()
+        finally:
+            eng.model = real_model
+        if not (torch.equal(real[0], cplx[0]) and torch.equal(real[1], cplx[1])):
+            fail("%s: a complex mask (mask, 0) changes the output" % kind)
+    print("fullsubnet: mask_gru and mmse with their masks as (mask, 0) bit for bit as real "
+          "masks on %s" % card)
+    frame = {k: sum(r[k] for r in rows_out) for k in ("ms", "plain_ms", "library_ms",
+                                                      "bound_ms")}
+    entry = {"name": "lstm_cell", "route": "cuda", "source": "koala_tpu_torch/csrc/lstm.cu",
+             "replaces": None, "launches": lstm.launches, "max_abs_err": worst,
+             "launches_by_path": {"corpus_runner": runner_launches,
+                                  "Koala.process": process_launches},
+             **frame, "bound_by": "the four layer-steps of a frame at B = 2048, each at its own",
+             "shape": [2048, 257], "widths": rows_out}
+    print(json.dumps({"fullsubnet": {"lstm": rows_out, "frame_at_b2048": frame,
+                                     "process_equals_runner": True, "server_equals_process": True,
+                                     "complex_mask_zero_imag_equal": True}}))
+    return entry
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA card: this script measures the port on a card")
@@ -3305,6 +3511,11 @@ def main() -> None:
     generators_phase(card)
     phase_s["generators"] = time.perf_counter() - s
 
+    # ---- 12. FullSubNet and the LSTM-cell kernel
+    s = time.perf_counter()
+    lstm_entry = fullsubnet_phase(kt, dev, card)
+    phase_s["fullsubnet"] = time.perf_counter() - s
+
     # every kernel's launches, by the path that made them
     by_path = {
         "floor_scan": {"process_chunk": launches["floor_scan"],
@@ -3380,11 +3591,12 @@ def main() -> None:
     kb.delete()
     print("chip_smoke: %.1f s from the build on, of which one stream's enhance %.1f s, "
           "acceptance %.1f s, surface %.1f s, cuts %.1f s, bench %.1f s, bench_sweep %.1f s, "
-          "pod_wash %.1f s, gate %.1f s, demo %.1f s, generators %.1f s"
+          "pod_wash %.1f s, gate %.1f s, demo %.1f s, generators %.1f s, fullsubnet %.1f s"
           % (time.perf_counter() - t0, single_s, accept_s, surface_s, cuts_s, phase_s["bench"],
              phase_s["bench_sweep"], phase_s["pod_wash"], phase_s["gate"], phase_s["demo"],
-             phase_s["generators"]))
+             phase_s["generators"], phase_s["fullsubnet"]))
 
+    kernels.append(lstm_entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,6 +7,10 @@ The same engine as the JAX package's ``engine/core.py``: STFT -> mask model
     ola         [*, 256]  synthesis overlap-add tail (the delayed samples)
     model       tree      model-specific recurrent state
 
+A model returns a real mask [*, K] or a complex one, (mask_re, mask_im)
+(``apply_mask``); a real mask is applied as it always was, re * mask and
+im * mask.
+
 Two execution shapes: ``step`` (one 256-sample hop per stream) and
 ``sequence`` ([*, T, 256] hops per call). ``sequence_fast`` sends batched
 input on a card through the fused engine kernel (ops/kernels/engine_fused.py)
@@ -34,6 +38,15 @@ from ..ops import stft as stft_ops
 from ..ops.kernels.engine_fused import T_BLOCK, fused_sequence, fused_sequence_supported
 
 logger = logging.getLogger("koala_tpu_torch")
+
+
+def apply_mask(re, im, mask):
+    """The spectrum under a model's mask: a real mask [..., K] scales re and
+    im; a complex one, (mask_re, mask_im), multiplies as a complex number."""
+    if isinstance(mask, tuple):
+        mr, mi = mask
+        return mr * re - mi * im, mi * re + mr * im
+    return re * mask, im * mask
 
 
 def _tree_map(fn, *trees):
@@ -65,14 +78,15 @@ class Engine:
         frame = torch.cat([state["input_carry"], hop], dim=-1)
         re, im = stft_ops.stft_frame(frame)
         model_state, mask = self.model.step(params, state["model"], re, im, self.config)
-        synth = stft_ops.istft_frame(re * mask, im * mask)
+        synth = stft_ops.istft_frame(*apply_mask(re, im, mask))
         out = synth[..., :FRAME_LENGTH] + state["ola"]
         new_state = {"input_carry": hop, "ola": synth[..., FRAME_LENGTH:],
                      "model": model_state}
         return new_state, out
 
     def sequence_full(self, params, state, hops):
-        """hops [*, T, 256] -> (state', out, mask, (re, im))."""
+        """hops [*, T, 256] -> (state', out, mask, (re, im)); ``mask`` is the
+        model's: a tensor, or (mask_re, mask_im) for a complex mask."""
         t_axis = hops.dim() - 2
         prev = torch.cat([state["input_carry"].unsqueeze(t_axis),
                           hops.narrow(t_axis, 0, hops.shape[t_axis] - 1)], dim=t_axis)
@@ -81,7 +95,7 @@ class Engine:
         with profiling.span("engine.model", frames=hops.shape[t_axis]):
             model_state, mask = self.model.apply_sequence(
                 params, state["model"], re, im, self.config)
-        synth = stft_ops.istft_frame(re * mask, im * mask)      # [*, T, 512]
+        synth = stft_ops.istft_frame(*apply_mask(re, im, mask))  # [*, T, 512]
         heads = synth[..., :FRAME_LENGTH]
         tails = synth[..., FRAME_LENGTH:]
         prev_tails = torch.cat([state["ola"].unsqueeze(t_axis),
@@ -179,4 +193,4 @@ def float_to_pcm(x) -> np.ndarray:
                    -32768, 32767).astype(np.int16)
 
 
-__all__ = ["Engine", "make_engine", "pcm_to_float", "float_to_pcm"]
+__all__ = ["Engine", "make_engine", "apply_mask", "pcm_to_float", "float_to_pcm"]

@@ -5,8 +5,10 @@ its implementation, behind one contract:
     step(params, state, re, im, config)           -> (state', mask)
     apply_sequence(params, state, re, im, config) -> (state', masks)
 
-Families: ``mask_gru`` (the flagship), ``mmse`` (the parameter-free
-baseline) and ``identity``.
+A mask is a tensor (real) or a pair (mask_re, mask_im) (complex; the
+engine's ``apply_mask``). Families: ``mask_gru`` (the flagship), ``mmse``
+(the parameter-free baseline), ``fullsubnet`` (FullSubNet, a full-band and a
+sub-band LSTM with a complex mask) and ``identity``.
 """
 
 from __future__ import annotations
@@ -14,11 +16,12 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from ..errors import ERROR_STACK, KoalaKeyError, raise_with_stack
-from . import identity, mask_gru, mmse
+from . import fullsubnet, identity, mask_gru, mmse
 
 MODEL_REGISTRY: Dict[str, Any] = {
     "mask_gru": mask_gru,
     "mmse": mmse,
+    "fullsubnet": fullsubnet,
     "identity": identity,
 }
 

@@ -1,0 +1,167 @@
+"""One LSTM layer-step over many rows: CUDA kernel and its plain version.
+
+``lstm_cell(x, h, c, w, b)`` computes, for every row,
+
+    gates = [bf16(x) | 0 | bf16(h)] @ w + b      (bf16 operands, f32 sums)
+    i, f, g, o = sigmoid, sigmoid, tanh, sigmoid of the four H-wide blocks
+    c' = f c + i g;   h' = o tanh(c')             (f32)
+
+with ``w`` [kxp + H, 4H] bf16 (rows 0..kx-1 W_ih^T, then zeros up to kxp, a
+multiple of 16, then W_hh^T; ``stack_weights`` builds it from PyTorch's
+[4H, in] layout) and ``b`` [4H] = b_ih + b_hh in f32.
+
+It replaces no TPU kernel: the JAX package has no LSTM. It serves
+FullSubNet's two recurrences (models/fullsubnet.py): the sub-band LSTM on
+B x 257 rows and the full-band LSTM on B rows. On the card (csrc/lstm.cu)
+one launch is the product and the cell: the tiled bf16 product of
+csrc/tile_gemm.cuh, whose passes each hold the four gates of 32 hidden
+units, so the epilogue finishes c' and h' in registers and the gates never
+reach device memory. A row's sums run over k in one fixed order whatever
+the row count, so a stream's bits do not depend on its batch. The plain
+version (CPU tensors only) takes the product as ``rowmm_ref`` does, over
+fixed blocks of rows, so on the CPU too a row's bits depend on that row
+alone.
+
+x, h and c may be row-strided views (the last axis contiguous): the state
+[*, 257, L, H] hands over one layer's rows as they lie. h' and c' go into
+``h_out`` and ``c_out`` where given (views of a new state), else new
+tensors. Every public entry point runs under ``torch.inference_mode()``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ... import profiling
+from . import _build
+from .gru import H100_SMS
+from .rowmm import rowmm_ref
+
+# launches of the CUDA kernel since the last reset
+launches = 0
+
+UNITS = 32          # hidden units of one pass of the kernel (128 gate columns)
+ROWS = 64           # rows of one block
+
+
+def padded(kx: int) -> int:
+    """Columns of x in the kernel's operand: kx rounded up to 16."""
+    return -(-kx // 16) * 16
+
+
+def stack_weights(w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
+                  b_hh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PyTorch's LSTM layer ([4H, in], [4H, H], [4H], [4H]; gates i, f, g,
+    o) -> the kernel's (w [padded(in) + H, 4H] bf16, b [4H] f32)."""
+    four_h, kx = w_ih.shape
+    h = w_hh.shape[1]
+    w = torch.zeros((padded(kx) + h, four_h), dtype=torch.bfloat16, device=w_ih.device)
+    w[:kx] = w_ih.t().bfloat16()
+    w[padded(kx):] = w_hh.t().bfloat16()
+    return w.contiguous(), (b_ih.float() + b_hh.float()).contiguous()
+
+
+def plan(m: int, h: int) -> Tuple[int, int]:
+    """(passes a block, pass groups) of a launch over m rows at hidden h,
+    from the shape alone: one group while the row tiles fill the card twice,
+    else the passes split over as many groups as that takes."""
+    tiles = -(-m // ROWS)
+    passes = -(-h // UNITS)
+    split = min(passes, max(1, -(-2 * H100_SMS // tiles)))
+    per_block = -(-passes // split)
+    return per_block, -(-passes // per_block)
+
+
+def _check(x, h, c, w, b) -> Tuple[int, int, int]:
+    if x.dim() != 2 or h.dim() != 2 or c.shape != h.shape or x.shape[0] != h.shape[0]:
+        raise ValueError("lstm_cell: x [M, kx], h and c [M, H] expected, got %s, %s, %s"
+                         % (tuple(x.shape), tuple(h.shape), tuple(c.shape)))
+    m, kx = x.shape
+    hid = h.shape[1]
+    if hid % 16:
+        raise ValueError("lstm_cell: H = %d is not a multiple of 16" % hid)
+    if tuple(w.shape) != (padded(kx) + hid, 4 * hid) or tuple(b.shape) != (4 * hid,):
+        raise ValueError("lstm_cell: w [%d, %d] and b [%d] expected, got %s and %s"
+                         % (padded(kx) + hid, 4 * hid, 4 * hid, tuple(w.shape), tuple(b.shape)))
+    for name, t in (("x", x), ("h", h), ("c", c)):
+        if t.dtype != torch.float32 or (t.shape[1] > 1 and t.stride(1) != 1):
+            raise ValueError("lstm_cell %s: float32 rows with a contiguous last axis expected"
+                             % name)
+    return m, kx, hid
+
+
+def lstm_cell_ref(x, h, c, w, b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: the product as ``rowmm_ref`` (fixed blocks of rows) on
+    the bf16-rounded operands, the gates in f32. -> (h', c') [M, H]."""
+    m, kx, hid = _check(x, h, c, w, b)
+    a = torch.cat([x.bfloat16().float(), x.new_zeros((m, padded(kx) - kx)),
+                   h.bfloat16().float()], dim=-1)
+    gates = rowmm_ref(a, w.float()) + b
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+def _launch(x, h, c, w, b, h_out, c_out) -> None:
+    global launches
+    m, kx, hid = _check(x, h, c, w, b)
+    _build.require_cuda(w, "lstm_cell w", torch.bfloat16, aligned=True)
+    _build.require_cuda(b, "lstm_cell b", torch.float32)
+    for name, t in (("x", x), ("h", h), ("c", c), ("h_out", h_out), ("c_out", c_out)):
+        if t.device != w.device:
+            raise ValueError("lstm_cell %s: on %s, w on %s" % (name, t.device, w.device))
+    # c is read and h', c' written two floats at a time
+    for name, t in (("c", c), ("h_out", h_out), ("c_out", c_out)):
+        if tuple(t.shape) != (m, hid) or (m > 1 and t.stride(0) % 2) or t.data_ptr() % 8:
+            raise ValueError("lstm_cell %s: [%d, %d] rows starting 8-byte aligned expected"
+                             % (name, m, hid))
+    if m >= 2 ** 31 // ROWS * ROWS:
+        raise ValueError("lstm_cell: %d rows are too many for one launch" % m)
+    if m == 0:
+        return
+    per_block, groups = plan(m, hid)
+    status = _build.library().koala_lstm_cell(
+        x.data_ptr(), h.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+        w.data_ptr(), b.data_ptr(), x.stride(0), h.stride(0), c.stride(0), h_out.stride(0),
+        c_out.stride(0), m, kx, padded(kx), hid, per_block, groups,
+        _build.stream_handle(w.device))
+    launches += 1
+    _build.check(status, "koala_lstm_cell")
+
+
+@torch.inference_mode()
+def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor, h_out: Optional[torch.Tensor] = None,
+              c_out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [M, kx], h and c [M, H] f32 (row-strided views allowed) ->
+    (h', c') [M, H] f32, written into ``h_out`` / ``c_out`` when given (they
+    must not overlap x, h or c). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    if h_out is None:
+        h_out = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+    if c_out is None:
+        c_out = torch.empty(c.shape, dtype=torch.float32, device=c.device)
+    if x.device.type == "cpu":
+        h_new, c_new = lstm_cell_ref(x, h, c, w, b)
+        h_out.copy_(h_new)
+        c_out.copy_(c_new)
+    else:
+        _launch(x, h, c, w, b, h_out, c_out)
+    return h_out, c_out
+
+
+def bound(m: int, kx: int, h: int):
+    """Least time (ms) of one layer-step over m rows on an H100
+    (``profiling.bound``): x, h and c read and h', c' written in f32, the
+    weights (bf16) and bias once; 2 m (kx + H) 4H bf16 operations on the
+    tensor cores beside the cell's f32 math (four gate functions, two
+    products and an add, a tanh: about 40 operations a unit)."""
+    n_bytes = (m * kx + 4 * m * h) * 4 + (padded(kx) + h) * 4 * h * 2 + 4 * h * 4
+    mm = 2 * m * (kx + h) * 4 * h
+    ew = 40 * m * h
+    return profiling.bound(n_bytes, mm, ew)
+
+
+__all__ = ["lstm_cell", "lstm_cell_ref", "stack_weights", "plan", "padded", "bound"]

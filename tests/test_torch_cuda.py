@@ -6,6 +6,8 @@ machine without them:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1083,3 +1085,141 @@ def test_runner_copies_run_beside_the_kernels(cuda_device, tmp_path):
     # batch's chunks are there
     assert len(copies) >= -(-b * samples * 4 // upload.SLOT_BYTES)
     assert kernels and not kernels & {e["args"]["stream"] for e in copies}
+
+
+# -- FullSubNet and the LSTM-cell kernel --------------------------------------
+
+# the LSTM kernel against its plain version: the same bf16 operands, f32 sums
+# in another order (the tensor cores' against the library's), so the gates
+# differ in their last bits and h' and c' by about 1e-6
+LSTM_ATOL = 2e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FSN_MODEL = os.path.join(REPO, "models", "fullsubnet", "fullsubnet_random.pv")
+# (kx, H) of FullSubNet's four layer-steps: the full band's, the sub-band's
+LSTM_WIDTHS = [(257, 512), (512, 512), (32, 384), (384, 384)]
+
+
+def _lstm_case(kx, h, rows, device, seed=0):
+    from koala_tpu_torch.ops.kernels import lstm
+
+    g = torch.Generator(device="cpu").manual_seed(seed + kx + h)
+    w_ih = torch.rand(4 * h, kx, generator=g) * 2 - 1
+    w_hh = torch.rand(4 * h, h, generator=g) * 2 - 1
+    b_ih, b_hh = (torch.rand(4 * h, generator=g) * 2 - 1 for _ in range(2))
+    w, b = lstm.stack_weights(w_ih / h ** 0.5, w_hh / h ** 0.5, b_ih / h ** 0.5, b_hh / h ** 0.5)
+    # the state as the model holds it: [rows, 2, H], the cell on layer 1's rows
+    x = torch.randn(rows, kx, device=device)
+    state = torch.randn(rows, 2, h, device=device)
+    return x, state[:, 1], state[:, 0] * 2, w.to(device), b.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kx,h", LSTM_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 64, 526336])
+def test_lstm_kernel_matches_its_plain_version(cuda_device, kx, h, rows):
+    from koala_tpu_torch.ops.kernels import lstm
+
+    if rows == 526336 and h == 512:
+        rows = 2048          # the full band runs on B rows, not B x 257
+    x, h0, c0, w, b = _lstm_case(kx, h, rows, cuda_device)
+    before = lstm.launches
+    out_h, out_c = torch.empty(rows, 2, h, device=cuda_device), torch.empty(rows, 2, h,
+                                                                          device=cuda_device)
+    lstm.lstm_cell(x, h0, c0, w, b, out_h[:, 0], out_c[:, 0])
+    torch.cuda.synchronize()
+    assert lstm.launches == before + 1
+    ref_h, ref_c = lstm.lstm_cell_ref(x, h0, c0, w, b)
+    assert (out_h[:, 0] - ref_h).abs().max() < LSTM_ATOL
+    assert (out_c[:, 0] - ref_c).abs().max() < LSTM_ATOL
+    assert torch.isfinite(out_h[:, 0]).all() and float(out_h[:, 0].abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kx,h", LSTM_WIDTHS)
+def test_lstm_kernel_gives_a_row_the_same_bits_at_any_row_count(cuda_device, kx, h):
+    """Row 0 alone, in 64 rows, in 257 rows (a stream's sub-band, the passes
+    split over blocks) and in 2048 x 257: the same bits."""
+    from koala_tpu_torch.ops.kernels import lstm
+
+    x, h0, c0, w, b = _lstm_case(kx, h, 526336 if h == 384 else 2048, cuda_device)
+    full_h, full_c = lstm.lstm_cell(x, h0, c0, w, b)
+    for rows in (1, 64, 257):
+        part_h, part_c = lstm.lstm_cell(x[:rows], h0[:rows], c0[:rows], w, b)
+        assert torch.equal(part_h, full_h[:rows]) and torch.equal(part_c, full_c[:rows]), rows
+
+
+@pytest.fixture(scope="module")
+def fsn_pcm():
+    """Four 6.0 s streams of noisy speech as int16 (the benchmark's mixes)."""
+    import sys
+
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from benchmark import audio
+
+    bank = audio.Bank(REPO, "cpu")
+    plan = audio.Plan(np.random.default_rng(7), 4, bank.length)
+    mix = audio.mix_blocks(bank, plan, 375 * 256).numpy()
+    return np.clip(np.round(mix * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def _fsn_process(pcm, device):
+    k = koala_tpu_torch.create(ACCESS_KEY, model_path=FSN_MODEL, device=device)
+    try:
+        return np.concatenate([k.process(pcm[s:s + 256]) for s in range(0, len(pcm), 256)])
+    finally:
+        k.delete()
+
+
+@pytest.mark.cuda
+def test_fullsubnet_process_equals_its_row_of_the_corpus_runner(cuda_device, fsn_pcm):
+    """One stream's Koala.process, frame by frame (1 and 257 kernel rows),
+    is bit for bit its row of CorpusRunner.enhance_batch at B = 64 (64 and
+    16448 rows)."""
+    from koala_tpu_torch.ops.kernels import lstm
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh
+
+    batch = np.zeros((64, 375 * 256), np.float32)
+    batch[:4] = fsn_pcm / 32768.0
+    batch[4:] = np.roll(batch[:4], 1000, axis=1).repeat(15, axis=0)
+    runner = CorpusRunner(FSN_MODEL, global_batch=64, utterance_samples=375 * 256,
+                          mesh=make_mesh(["gpu:0"]))
+    before = lstm.launches
+    out = runner.enhance_batch(batch)
+    torch.cuda.synchronize()
+    assert lstm.launches - before == 4 * 375
+    rows = np.clip(np.round(out[:2].reshape(2, -1).cpu().numpy().astype(np.float64) * 32768.0),
+                   -32768, 32767).astype(np.int16)
+    for s in range(2):
+        assert np.array_equal(_fsn_process(fsn_pcm[s], "gpu"), rows[s]), s
+
+
+@pytest.mark.cuda
+def test_fullsubnet_server_equals_process(cuda_device, fsn_pcm):
+    """The StreamingServer's rounds (full chunks through the sequence, the
+    rest through the captured step graph) against Koala.process, bit for bit."""
+    import time
+
+    from koala_tpu_torch.serve import StreamingServer
+
+    pcm = fsn_pcm[:, :100 * 256]
+    want = [_fsn_process(row, "gpu") for row in pcm]
+    server = StreamingServer(ACCESS_KEY, model_path=FSN_MODEL, device="gpu", num_streams=4,
+                             chunk_frames=8)
+    try:
+        for s in range(4):
+            server.push(s, pcm[s, :(37 + 13 * s) * 256])
+        time.sleep(0.5)
+        for s in range(4):
+            server.push(s, pcm[s, (37 + 13 * s) * 256:])
+        for s in range(4):
+            got, deadline = [], time.time() + 120
+            while sum(len(g) for g in got) < pcm.shape[1] and time.time() < deadline:
+                chunk = server.pull(s)
+                if len(chunk):
+                    got.append(chunk)
+                else:
+                    time.sleep(0.005)
+            assert np.array_equal(np.concatenate(got), want[s]), s
+    finally:
+        server.close()
