@@ -166,10 +166,11 @@
    byte-identical runs, every WAV 93680 samples.
 12. FullSubNet (``models/fullsubnet/fullsubnet_random.pv``) and its LSTM-cell kernel
    (``csrc/lstm.cu``): the kernel against its plain version at each of the
-   model's four widths at 1, 64, 257 and the benchmark's rows (2048 for the
-   full band, 526,336 for the sub-band), a row's bits the same at every row
-   count, and each width's time beside its bound, its plain version's and
-   the library's (a ``lstm ...`` line each); one stream's ``Koala.process``
+   model's four widths at 1, 64, 127, 128, 129, 257 and the benchmark's rows
+   (2048 for the full band, 526,336 for the sub-band) and 29 fewer, a row's
+   bits the same at every row count, and each width's launch plan and time
+   beside its bound, its plain version's and the library's (a ``lstm ...``
+   line each); one stream's ``Koala.process``
    bit for bit its row of ``CorpusRunner.enhance_batch`` at B = 64; the
    ``StreamingServer`` bit for bit ``Koala.process``; ``mask_gru`` and
    ``mmse`` with their masks handed over as (mask, 0) bit for bit as real
@@ -2930,9 +2931,9 @@ def lstm_case(lstm, kx, h, rows, dev):
 def fullsubnet_phase(kt, dev, card):
     """Phase 12: FullSubNet (models/fullsubnet.py) and its LSTM-cell kernel
     (csrc/lstm.cu). The kernel against its plain version at each of the
-    model's four widths, at 1, 64 and the benchmark's rows (2048 full-band,
-    526,336 sub-band), a row's bits the same at every row count, and each
-    width's time beside its bound, the plain version's and the library's
+    model's four widths, at 1, 64, 127, 128, 129, 257 and the benchmark's
+    rows (2048 full-band, 526,336 sub-band) and 29 fewer, a row's bits the
+    same at every row count, and each width's plan and time beside its bound, the plain version's and the library's
     (cuBLAS bf16 products and torch's elementwise gates); one stream's
     ``Koala.process`` bit for bit its row of ``CorpusRunner.enhance_batch``
     at B = 64; the ``StreamingServer`` (full-chunk and single-frame rounds)
@@ -2954,7 +2955,7 @@ def fullsubnet_phase(kt, dev, card):
     for band, kx, h, big in LSTM_SHAPES:
         x, h0, c0, w, b, raw = lstm_case(lstm, kx, h, big, dev)
         full_h, full_c = lstm.lstm_cell(x, h0, c0, w, b)
-        for rows in (1, 64, 257, big):
+        for rows in (1, 64, 127, 128, 129, 257, big - 29, big):
             part_h, part_c = lstm.lstm_cell(x[:rows], h0[:rows], c0[:rows], w, b)
             if not (torch.equal(part_h, full_h[:rows]) and torch.equal(part_c, full_c[:rows])):
                 fail("lstm %s kx %d: a row's bits at %d rows differ from %d rows"
@@ -2974,11 +2975,12 @@ def fullsubnet_phase(kt, dev, card):
         rows_out.append({"band": band, "kx": kx, "H": h, "rows": big, "ms": ms,
                          "plain_ms": plain_ms, "library_ms": library_ms,
                          "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
-                         "tflops": flops / ms / 1e9, "plan": list(lstm.plan(big, h))})
-        print("lstm %s kx %d H %d rows %d: ms %.4f bound_ms %.4f (%s) plain_ms %.2f library_ms "
-              "%.4f, %.1f TFLOP/s, max|err| %.3g on %s"
-              % (band, kx, h, big, ms, max(bound.values()), max(bound, key=bound.get), plain_ms,
-                 library_ms, flops / ms / 1e9, err, card), flush=True)
+                         "tflops": flops / ms / 1e9, "plan": list(lstm.plan(big, kx, h))})
+        print("lstm %s kx %d H %d rows %d: plan (tile rows, passes a block, groups) %s, ms %.4f "
+              "bound_ms %.4f (%s) plain_ms %.2f library_ms %.4f, %.1f TFLOP/s, max|err| %.3g on %s"
+              % (band, kx, h, big, lstm.plan(big, kx, h), ms, max(bound.values()),
+                 max(bound, key=bound.get), plain_ms, library_ms, flops / ms / 1e9, err, card),
+              flush=True)
         del x, h0, c0, full_h, full_c, out_h, out_c
 
     # one stream's Koala.process against its row of the corpus runner's batch

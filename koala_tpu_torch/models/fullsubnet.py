@@ -157,7 +157,7 @@ class FullSubNet(nn.Module):
 
     def cell_operands(self, branch: str, i: int, dtype: str):
         """Layer ``i`` of a branch as the cell takes it: bf16, the kernel's
-        (w [padded(in) + H, 4H], b_ih + b_hh); f32, (w [in + H, 4H], b)."""
+        (w [4H, padded(in) + H] in pass order, b_ih + b_hh); f32, (w [in + H, 4H], b)."""
         layer = getattr(self, branch).lstm[i]
 
         def build():

@@ -105,9 +105,9 @@ _SIGNATURES = {
     "koala_rowmm": ([_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _P], _I),
     "koala_rowmm_simple": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "koala_rowmm_variant": ([_I, _P], _I),
-    # x, h, c, h_out, c_out, w, b, their row strides, M, kx, kxp, H, passes a
-    # block, pass groups
-    "koala_lstm_cell": ([_P] * 7 + [_L] * 5 + [_I] * 6 + [_P], _I),
+    # x, h, c, h_out, c_out, w, b, their row strides, M, kx, kxp, H, tile rows,
+    # passes a block, pass groups
+    "koala_lstm_cell": ([_P] * 7 + [_L] * 5 + [_I] * 7 + [_P], _I),
 }
 
 

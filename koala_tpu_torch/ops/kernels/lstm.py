@@ -2,25 +2,46 @@
 
 ``lstm_cell(x, h, c, w, b)`` computes, for every row,
 
-    gates = [bf16(x) | 0 | bf16(h)] @ w + b      (bf16 operands, f32 sums)
+    gates = [bf16(x) | 0 | bf16(h)] @ W + b      (bf16 operands, f32 sums)
     i, f, g, o = sigmoid, sigmoid, tanh, sigmoid of the four H-wide blocks
     c' = f c + i g;   h' = o tanh(c')             (f32)
 
-with ``w`` [kxp + H, 4H] bf16 (rows 0..kx-1 W_ih^T, then zeros up to kxp, a
-multiple of 16, then W_hh^T; ``stack_weights`` builds it from PyTorch's
-[4H, in] layout) and ``b`` [4H] = b_ih + b_hh in f32.
+with ``b`` [4H] = b_ih + b_hh in f32 and ``w`` [4H, kxp + H] bf16, W's
+transpose in pass order: its columns 0..kx-1 are W_ih, then zeros up to kxp
+(kx rounded up to 16), then W_hh, and its row 32 g + 8 q + t holds gate q
+(i, f, g, o) of hidden unit 8 g + t. ``stack_weights`` builds it from
+PyTorch's [4H, in] layout; ``unstack`` gives PyTorch's gate order back.
 
 It replaces no TPU kernel: the JAX package has no LSTM. It serves
 FullSubNet's two recurrences (models/fullsubnet.py): the sub-band LSTM on
 B x 257 rows and the full-band LSTM on B rows. On the card (csrc/lstm.cu)
-one launch is the product and the cell: the tiled bf16 product of
-csrc/tile_gemm.cuh, whose passes each hold the four gates of 32 hidden
-units, so the epilogue finishes c' and h' in registers and the gates never
-reach device memory. A row's sums run over k in one fixed order whatever
-the row count, so a stream's bits do not depend on its batch. The plain
-version (CPU tensors only) takes the product as ``rowmm_ref`` does, over
-fixed blocks of rows, so on the CPU too a row's bits depend on that row
-alone.
+one launch is the product and the cell, a warp-specialised persistent
+kernel in clusters of two blocks:
+
+- the tile: ``tile_rows(kx, H)`` rows of [x | 0 | h] as bf16 in shared
+  memory, the whole depth, one consumer warpgroup a 64 rows issuing wgmma
+  (m64n128k16) on it; a pass is 128 gate columns, the four gates of 32
+  hidden units (the pass order above), so the epilogue finishes c' and h'
+  in registers and the gates never reach device memory;
+- the ring: a producer warp a block streams W by TMA through stages of 32
+  deep x 128 columns; each block of a cluster fetches half of every stage
+  and multicasts it into both, so a byte of W from L2 serves both blocks'
+  tiles and each block's TMA unit moves half of what it multiplies;
+- the persistent walk: as many clusters as are resident walk the work
+  items (pair of row tiles, group of passes), the producers running ahead
+  across them.
+
+The tile height follows the width alone, never the row count: 128 rows
+where the A tile and a ring of four stages fit in a block's 227 KB (the
+sub-band's K = 416 and 768), else 64 (the full band's 784 and 1024). A row's
+sums run over k in one fixed order at any place in any tile, so a stream's
+bits do not depend on its batch. ``plan`` splits the passes into groups
+from the shape, so few rows still fill the card. At 526,336 rows the ring's
+delivery of W into each block bounds the kernel first, then each tile's A
+load and the gates' special functions, neither hidden behind the products.
+The plain version (CPU tensors only) takes the product as ``rowmm_ref``
+does, over fixed blocks of rows, so on the CPU too a row's bits depend on
+that row alone.
 
 x, h and c may be row-strided views (the last axis contiguous): the state
 [*, 257, L, H] hands over one layer's rows as they lie. h' and c' go into
@@ -43,7 +64,12 @@ from .rowmm import rowmm_ref
 launches = 0
 
 UNITS = 32          # hidden units of one pass of the kernel (128 gate columns)
-ROWS = 64           # rows of one block
+CLUSTER = 2         # blocks of a cluster, which share the weights' stages
+SMEM_BYTES = 232448     # shared memory a block may hold on an H100
+SMEM_SLACK = 1024 + 256  # the kernel's alignment of its carve-out, its barriers
+STAGE_BYTES = 8192      # a stage of the weight ring: 32 deep x 128 gate columns, bf16
+RING_128 = 4            # stages a 128-row tile needs beside it
+RING_64 = 2
 
 
 def padded(kx: int) -> int:
@@ -51,27 +77,60 @@ def padded(kx: int) -> int:
     return -(-kx // 16) * 16
 
 
+def _pass_order(h: int):
+    """Row r of the kernel's w -> row of PyTorch's [4H, *] (gate blocks i, f,
+    g, o): r = 32 g + 8 q + t is gate q of unit 8 g + t."""
+    return torch.arange(4 * h).view(4, h // 8, 8).permute(1, 0, 2).reshape(-1)
+
+
 def stack_weights(w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
                   b_hh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """PyTorch's LSTM layer ([4H, in], [4H, H], [4H], [4H]; gates i, f, g,
-    o) -> the kernel's (w [padded(in) + H, 4H] bf16, b [4H] f32)."""
+    o) -> the kernel's (w [4H, padded(in) + H] bf16 in pass order, b [4H]
+    f32 in PyTorch's order)."""
     four_h, kx = w_ih.shape
     h = w_hh.shape[1]
-    w = torch.zeros((padded(kx) + h, four_h), dtype=torch.bfloat16, device=w_ih.device)
-    w[:kx] = w_ih.t().bfloat16()
-    w[padded(kx):] = w_hh.t().bfloat16()
-    return w.contiguous(), (b_ih.float() + b_hh.float()).contiguous()
+    if h % 8:
+        raise ValueError("stack_weights: H = %d is not a multiple of 8" % h)
+    w = torch.zeros((four_h, padded(kx) + h), dtype=torch.bfloat16, device=w_ih.device)
+    w[:, :kx] = w_ih.bfloat16()
+    w[:, padded(kx):] = w_hh.bfloat16()
+    return (w[_pass_order(h).to(w.device)].contiguous(),
+            (b_ih.float() + b_hh.float()).contiguous())
 
 
-def plan(m: int, h: int) -> Tuple[int, int]:
-    """(passes a block, pass groups) of a launch over m rows at hidden h,
-    from the shape alone: one group while the row tiles fill the card twice,
-    else the passes split over as many groups as that takes."""
-    tiles = -(-m // ROWS)
+def unstack(w: torch.Tensor) -> torch.Tensor:
+    """The kernel's w [4H, K] in pass order -> [K, 4H] in PyTorch's gate
+    order (the product's right operand)."""
+    out = torch.empty_like(w)
+    out[_pass_order(w.shape[0] // 4).to(w.device)] = w
+    return out.t()
+
+
+def tile_rows(kx: int, h: int) -> int:
+    """Rows of the kernel's tile at a width: 128 where the A tile (bf16, in
+    64-deep panels of 128-byte rows) and a ring of RING_128 stages fit in a
+    block's shared memory, else 64. From (kx, H) alone, never the row count."""
+    k = padded(kx) + h
+    panel = -(-k // 64) * 128
+    for rows, ring in ((128, RING_128), (64, RING_64)):
+        if SMEM_SLACK + rows * panel + ring * STAGE_BYTES <= SMEM_BYTES:
+            return rows
+    raise ValueError("lstm_cell: depth %d (kx %d + H %d) is too deep for the kernel's tile"
+                     % (k, kx, h))
+
+
+def plan(m: int, kx: int, h: int) -> Tuple[int, int, int]:
+    """(tile rows, passes a block, pass groups) of a launch over m rows at
+    (kx, H): the tile height from the width alone; the passes split over as
+    many groups as it takes for the work items (pair of row tiles, group of
+    passes) to reach one a cluster of two blocks on an H100."""
+    rows = tile_rows(kx, h)
+    pairs = -(-(-(-m // rows)) // CLUSTER)
     passes = -(-h // UNITS)
-    split = min(passes, max(1, -(-2 * H100_SMS // tiles)))
+    split = min(passes, max(1, -(-(H100_SMS // CLUSTER) // pairs)))
     per_block = -(-passes // split)
-    return per_block, -(-passes // per_block)
+    return rows, per_block, -(-passes // per_block)
 
 
 def _check(x, h, c, w, b) -> Tuple[int, int, int]:
@@ -82,9 +141,9 @@ def _check(x, h, c, w, b) -> Tuple[int, int, int]:
     hid = h.shape[1]
     if hid % 16:
         raise ValueError("lstm_cell: H = %d is not a multiple of 16" % hid)
-    if tuple(w.shape) != (padded(kx) + hid, 4 * hid) or tuple(b.shape) != (4 * hid,):
+    if tuple(w.shape) != (4 * hid, padded(kx) + hid) or tuple(b.shape) != (4 * hid,):
         raise ValueError("lstm_cell: w [%d, %d] and b [%d] expected, got %s and %s"
-                         % (padded(kx) + hid, 4 * hid, 4 * hid, tuple(w.shape), tuple(b.shape)))
+                         % (4 * hid, padded(kx) + hid, 4 * hid, tuple(w.shape), tuple(b.shape)))
     for name, t in (("x", x), ("h", h), ("c", c)):
         if t.dtype != torch.float32 or (t.shape[1] > 1 and t.stride(1) != 1):
             raise ValueError("lstm_cell %s: float32 rows with a contiguous last axis expected"
@@ -98,7 +157,7 @@ def lstm_cell_ref(x, h, c, w, b) -> Tuple[torch.Tensor, torch.Tensor]:
     m, kx, hid = _check(x, h, c, w, b)
     a = torch.cat([x.bfloat16().float(), x.new_zeros((m, padded(kx) - kx)),
                    h.bfloat16().float()], dim=-1)
-    gates = rowmm_ref(a, w.float()) + b
+    gates = rowmm_ref(a, unstack(w).float()) + b
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     return torch.sigmoid(o) * torch.tanh(c_new), c_new
@@ -117,15 +176,15 @@ def _launch(x, h, c, w, b, h_out, c_out) -> None:
         if tuple(t.shape) != (m, hid) or (m > 1 and t.stride(0) % 2) or t.data_ptr() % 8:
             raise ValueError("lstm_cell %s: [%d, %d] rows starting 8-byte aligned expected"
                              % (name, m, hid))
-    if m >= 2 ** 31 // ROWS * ROWS:
-        raise ValueError("lstm_cell: %d rows are too many for one launch" % m)
     if m == 0:
         return
-    per_block, groups = plan(m, hid)
+    rows, per_block, groups = plan(m, kx, hid)
+    if -(-m // rows) * groups >= 2 ** 31:
+        raise ValueError("lstm_cell: %d rows are too many for one launch" % m)
     status = _build.library().koala_lstm_cell(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
         w.data_ptr(), b.data_ptr(), x.stride(0), h.stride(0), c.stride(0), h_out.stride(0),
-        c_out.stride(0), m, kx, padded(kx), hid, per_block, groups,
+        c_out.stride(0), m, kx, padded(kx), hid, rows, per_block, groups,
         _build.stream_handle(w.device))
     launches += 1
     _build.check(status, "koala_lstm_cell")
@@ -164,4 +223,5 @@ def bound(m: int, kx: int, h: int):
     return profiling.bound(n_bytes, mm, ew)
 
 
-__all__ = ["lstm_cell", "lstm_cell_ref", "stack_weights", "plan", "padded", "bound"]
+__all__ = ["lstm_cell", "lstm_cell_ref", "stack_weights", "unstack", "plan", "tile_rows",
+           "padded", "bound"]

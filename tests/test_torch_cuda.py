@@ -1134,18 +1134,46 @@ def test_lstm_kernel_matches_its_plain_version(cuda_device, kx, h, rows):
     assert torch.isfinite(out_h[:, 0]).all() and float(out_h[:, 0].abs().max()) > 0.1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kx,h", LSTM_WIDTHS)
-def test_lstm_kernel_gives_a_row_the_same_bits_at_any_row_count(cuda_device, kx, h):
-    """Row 0 alone, in 64 rows, in 257 rows (a stream's sub-band, the passes
-    split over blocks) and in 2048 x 257: the same bits."""
+# rows of the whole launch a row count's bits are held to: the sub-band's 2048
+# x 257, the full band's 4 x 2048 (so 4112 rows fit and its persistent walk
+# wraps the grid too)
+LSTM_FULL_ROWS = {384: 526336, 512: 8192}
+
+
+@pytest.fixture(scope="module")
+def lstm_full_launch():
+    """(kx, H, device) -> the case at LSTM_FULL_ROWS[H] rows and its h', c'
+    from one launch over all of them; the last width's kept."""
     from koala_tpu_torch.ops.kernels import lstm
 
-    x, h0, c0, w, b = _lstm_case(kx, h, 526336 if h == 384 else 2048, cuda_device)
-    full_h, full_c = lstm.lstm_cell(x, h0, c0, w, b)
-    for rows in (1, 64, 257):
-        part_h, part_c = lstm.lstm_cell(x[:rows], h0[:rows], c0[:rows], w, b)
-        assert torch.equal(part_h, full_h[:rows]) and torch.equal(part_c, full_c[:rows]), rows
+    held = {}
+
+    def get(kx, h, device):
+        if (kx, h) not in held:
+            held.clear()
+            case = _lstm_case(kx, h, LSTM_FULL_ROWS[h], device)
+            held[(kx, h)] = case, lstm.lstm_cell(*case)
+        return held[(kx, h)]
+    yield get
+    held.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kx,h", LSTM_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 64, 127, 128, 129, 257, 4112, "ragged"])
+def test_lstm_kernel_gives_a_row_the_same_bits_at_any_row_count(cuda_device, lstm_full_launch,
+                                                               kx, h, rows):
+    """A row's bits in a launch over 1 row, 64, a 128-row tile and one row
+    less or more, a stream's 257 (the passes split over blocks), 16 streams'
+    4112 and all but 29 rows of the whole (a ragged last tile of the
+    persistent walk) are those it has in the whole launch."""
+    from koala_tpu_torch.ops.kernels import lstm
+
+    (x, h0, c0, w, b), (full_h, full_c) = lstm_full_launch(kx, h, cuda_device)
+    if rows == "ragged":
+        rows = x.shape[0] - 29
+    part_h, part_c = lstm.lstm_cell(x[:rows], h0[:rows], c0[:rows], w, b)
+    assert torch.equal(part_h, full_h[:rows]) and torch.equal(part_c, full_c[:rows]), rows
 
 
 @pytest.fixture(scope="module")

@@ -312,7 +312,7 @@ def test_lstm_plain_version_is_the_cell(kx, h):
     h0 = torch.randn(70, h, generator=g) * 0.5
     c0 = torch.randn(70, h, generator=g)
     w, b = lstm.stack_weights(cell.weight_ih, cell.weight_hh, cell.bias_ih, cell.bias_hh)
-    assert w.shape == (lstm.padded(kx) + h, 4 * h) and w.dtype == torch.bfloat16
+    assert w.shape == (4 * h, lstm.padded(kx) + h) and w.dtype == torch.bfloat16
     with torch.no_grad():
         want_h, want_c = cell.double()(x.bfloat16().double(),
                                        (h0.bfloat16().double(), c0.double()))
@@ -333,8 +333,58 @@ def test_lstm_plain_version_row_by_row():
     lstm.lstm_cell(x, state[:, 0], state[:, 1], w, b, h_out[:, 1], c_out[:, 1])
     one_h, one_c = lstm.lstm_cell(x[37:38], state[37:38, 0], state[37:38, 1], w, b)
     assert torch.equal(one_h[0], h_out[37, 1]) and torch.equal(one_c[0], c_out[37, 1])
-    assert lstm.plan(100, 16) == (1, 1)
-    assert lstm.plan(526336, 384) == (12, 1) and lstm.plan(2048, 512) == (2, 8)
+
+
+@pytest.mark.parametrize("rows,kx,h,want", [
+    (526336, 32, 384, (128, 12, 1)),      # the sub-band at B = 2048: 2056 pairs of tiles
+    (526336, 384, 384, (128, 12, 1)),
+    (2048, 257, 512, (64, 4, 4)),         # the full band: 16 pairs x 4 groups of passes
+    (2048, 512, 512, (64, 4, 4)),
+    (257, 32, 384, (128, 1, 12)),         # one stream's sub-band: 2 pairs x 12 passes
+    (1, 32, 384, (128, 1, 12)),
+    (100, 32, 16, (128, 1, 1)),
+])
+def test_lstm_plan(rows, kx, h, want):
+    """The kernel's launch plan: (tile rows, passes a block, pass groups); a
+    work item is a pair of row tiles (a cluster of two blocks) and a group."""
+    assert lstm.plan(rows, kx, h) == want
+    tile, per_block, groups = want
+    passes = -(-h // lstm.UNITS)
+    assert per_block * groups >= passes > per_block * (groups - 1)
+    # K's A tile (bf16, 64-deep panels) and the ring fit in a block
+    k = lstm.padded(kx) + h
+    ring = lstm.RING_128 if tile == 128 else lstm.RING_64
+    assert lstm.SMEM_SLACK + tile * -(-k // 64) * 128 + ring * lstm.STAGE_BYTES <= lstm.SMEM_BYTES
+
+
+@pytest.mark.parametrize("kx,h,tile", [(32, 384, 128), (384, 384, 128), (257, 512, 64),
+                                       (512, 512, 64)])
+def test_lstm_tile_height_follows_the_width_alone(kx, h, tile):
+    """A row's sum order is the tile's: the same tile height at every row
+    count of a width, so a stream's bits do not depend on its batch."""
+    assert lstm.tile_rows(kx, h) == tile
+    for rows in (1, 63, 64, 127, 128, 129, 257, 2048, 4112, 526336, 526336 - 29):
+        assert lstm.plan(rows, kx, h)[0] == tile, rows
+
+
+def test_lstm_weights_in_pass_order():
+    """stack_weights lays W^T out in pass order (row 32 g + 8 q + t: gate q
+    of unit 8 g + t), x padded with zero columns to 16; unstack gives
+    PyTorch's [K, 4H] back."""
+    g = torch.Generator().manual_seed(2)
+    kx, h = 20, 48
+    w_ih, w_hh = torch.randn(4 * h, kx, generator=g), torch.randn(4 * h, h, generator=g)
+    w, b = lstm.stack_weights(w_ih, w_hh, torch.zeros(4 * h), torch.ones(4 * h))
+    assert w.shape == (4 * h, 32 + h) and torch.equal(b, torch.ones(4 * h))
+    for q in range(4):
+        for unit in (0, 7, 8, 33, 47):
+            row = 32 * (unit // 8) + 8 * q + unit % 8
+            assert torch.equal(w[row, :kx], w_ih[q * h + unit].bfloat16())
+            assert not w[row, kx:32].any()
+            assert torch.equal(w[row, 32:], w_hh[q * h + unit].bfloat16())
+    want = torch.cat([w_ih.bfloat16(), torch.zeros(4 * h, 32 - kx, dtype=torch.bfloat16),
+                      w_hh.bfloat16()], dim=1).t()
+    assert torch.equal(lstm.unstack(w), want)
 
 
 def test_lstm_bound_counts():
