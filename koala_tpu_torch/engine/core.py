@@ -12,9 +12,10 @@ A model returns a real mask [*, K] or a complex one, (mask_re, mask_im)
 im * mask.
 
 Two execution shapes: ``step`` (one 256-sample hop per stream) and
-``sequence`` ([*, T, 256] hops per call). ``sequence_fast`` sends batched
-input on a card through the fused engine kernel (ops/kernels/engine_fused.py)
-and whatever T leaves past a multiple of 8 through ``sequence``. Every
+``sequence`` ([*, T, 256] hops per call). ``sequence_fast`` sends the leading
+hops that the model's ``fused_hops`` grants (a multiple of ``T_BLOCK``)
+through the fused engine kernel (ops/kernels/engine_fused.py) and the rest
+through ``sequence``. Every
 function runs on the device its tensors lie on. Output is delayed by exactly
 DELAY_SAMPLE = 256 samples. Under a profiler ``sequence`` records the span
 ``engine.sequence`` (count ``hops``) and, inside it, ``engine.model`` around
@@ -25,7 +26,6 @@ from __future__ import annotations
 
 import functools
 import json
-import logging
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -35,9 +35,7 @@ from .. import profiling
 from ..constants import FRAME_LENGTH
 from ..models.registry import get_model
 from ..ops import stft as stft_ops
-from ..ops.kernels.engine_fused import T_BLOCK, fused_sequence, fused_sequence_supported
-
-logger = logging.getLogger("koala_tpu_torch")
+from ..ops.kernels.engine_fused import fused_sequence
 
 
 def apply_mask(re, im, mask):
@@ -62,7 +60,6 @@ class Engine:
         self.kind = kind
         self.config = dict(config)
         self.model = get_model(kind)
-        self._warned = False
 
     def init_state(self, batch_shape: Tuple[int, ...], device):
         batch_shape = tuple(batch_shape)
@@ -112,37 +109,18 @@ class Engine:
             new_state, out, _, _ = self.sequence_full(params, state, hops)
         return new_state, out
 
-    def _fused_enabled(self, params, hops) -> bool:
-        mode = self.config.get("use_pallas")
-        if self.kind != "mask_gru" or hops.dim() != 3 or mode in (False, None):
-            return False
-        if getattr(params, "gate", None) is None:
-            return False
-        if mode is not True and hops.device.type != "cuda":
-            return False
-        t8 = hops.shape[1] // T_BLOCK * T_BLOCK
-        if not t8:
-            return False
-        if fused_sequence_supported(self.config, hops.shape[0], t8, hops.device):
-            return True
-        if hops.device.type == "cuda" and not self._warned:
-            self._warned = True
-            logger.warning("engine: fused engine kernel DISABLED for this model "
-                           "(config or shape not supported) - sequence_fast runs "
-                           "the unfused sequence path")
-        return False
-
     def sequence_fast(self, params, state, hops):
-        """Offline/batch fast path: the fused engine kernel over the largest
-        multiple of 8 hops, the tail through ``sequence``; elsewhere plain
-        ``sequence``. Its numerics are the fused kernel's own (bf16 spectral
-        rounding); chunking stays exact within the fused path."""
-        if not self._fused_enabled(params, hops):
+        """Offline/batch fast path: the fused engine kernel over the leading
+        hops that the model's ``fused_hops`` grants, the tail through
+        ``sequence``; plain ``sequence`` where it grants none or the model
+        has no fused entry. Its numerics are the fused kernel's own (bf16
+        spectral rounding); chunking stays exact within the fused path."""
+        fused_hops = getattr(self.model, "fused_hops", None)
+        t8 = fused_hops(params, self.config, hops) if fused_hops is not None else 0
+        if not t8:
             return self.sequence(params, state, hops)
-        t_len = hops.shape[1]
-        t8 = t_len // T_BLOCK * T_BLOCK
         st, out = fused_sequence(params, state, hops[:, :t8], self.config)
-        if t8 < t_len:
+        if t8 < hops.shape[1]:
             st, tail = self.sequence(params, st, hops[:, t8:])
             out = torch.cat([out, tail], dim=1)
         return st, out

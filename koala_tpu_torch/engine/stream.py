@@ -27,6 +27,7 @@ from ..errors import (
     raise_with_stack,
 )
 from ..models import params_io
+from ..models.registry import kind_of
 from .core import float_to_pcm, make_engine, pcm_to_float
 
 _ACCESS_KEY_RE = _re.compile(r"^[A-Za-z0-9+/=]{8,}$")
@@ -55,7 +56,7 @@ def check_model_path(model_path) -> None:
 def load_model(model_path, device):
     """Model file -> (engine, parameter module on device)."""
     tree, config = params_io.load_params(model_path)
-    kind = config.get("kind", "mask_gru")
+    kind = kind_of(config)
     engine = make_engine(kind, config)
     return engine, params_io.params_from_numpy(tree, device, kind)
 

@@ -45,7 +45,6 @@ kernels it launched; see ``profiling.span``).
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -56,6 +55,7 @@ from .. import profiling
 from ..constants import NUM_BINS
 from ..ops.kernels import lstm, rowmm
 from ..ops.kernels.rowmm import matmul
+from .base import ParamModule, constant_on, num_params, param
 
 DEFAULT_CONFIG = {
     "kind": "fullsubnet",
@@ -100,20 +100,14 @@ def sb_features(cfg) -> int:
     return 2 * cfg["sb_num_neighbors"] + 1 + 2 * cfg["fb_num_neighbors"] + 1
 
 
-def _param(a) -> nn.Parameter:
-    if isinstance(a, torch.Tensor):
-        return nn.Parameter(a.detach().float().clone(), requires_grad=False)
-    return nn.Parameter(torch.tensor(np.asarray(a, np.float32)), requires_grad=False)
-
-
 class LSTMLayer(nn.Module):
     """PyTorch's LSTM layer: w_ih [4H, in], w_hh [4H, H], b_ih, b_hh [4H],
     gate blocks i, f, g, o."""
 
     def __init__(self, t):
         super().__init__()
-        self.w_ih, self.w_hh = _param(t["w_ih"]), _param(t["w_hh"])
-        self.b_ih, self.b_hh = _param(t["b_ih"]), _param(t["b_hh"])
+        self.w_ih, self.w_hh = param(t["w_ih"]), param(t["w_hh"])
+        self.b_ih, self.b_hh = param(t["b_ih"]), param(t["b_hh"])
 
 
 class Linear(nn.Module):
@@ -121,7 +115,7 @@ class Linear(nn.Module):
 
     def __init__(self, t):
         super().__init__()
-        self.w, self.b = _param(t["w"]), _param(t["b"])
+        self.w, self.b = param(t["w"]), param(t["b"])
 
 
 class Branch(nn.Module):
@@ -133,27 +127,13 @@ class Branch(nn.Module):
         self.fc = Linear(t["fc"])
 
 
-class FullSubNet(nn.Module):
-    """Parameters of the model. ``state_dict`` keys map one to one onto the
-    ``.pv`` flat names (``fb/lstm/0/w_ih`` -> ``fb.lstm.0.w_ih``)."""
+class FullSubNet(ParamModule):
+    """Parameters of the model (``fb/lstm/0/w_ih`` -> ``fb.lstm.0.w_ih``)."""
 
     def __init__(self, tree):
         super().__init__()
         self.fb = Branch(tree["fb"])
         self.sb = Branch(tree["sb"])
-        self._derived: Dict[str, Tuple[Any, Any]] = {}
-
-    def derived(self, name: str, build):
-        """A tensor derived from the weights (the kernel's stacked operands, a
-        rounded output layer), built once and rebuilt when a weight changes or
-        moves."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        hit = self._derived.get(name)
-        if hit is None or hit[0] != key:
-            with torch.inference_mode(False), torch.no_grad():
-                hit = (key, build())
-            self._derived[name] = hit
-        return hit[1]
 
     def cell_operands(self, branch: str, i: int, dtype: str):
         """Layer ``i`` of a branch as the cell takes it: bf16, the kernel's
@@ -173,6 +153,9 @@ class FullSubNet(nn.Module):
         w = getattr(self, branch).fc.w
         rnd = (lambda t: t.bfloat16().float()) if dtype == "bfloat16" else (lambda t: t)
         return self.derived("fc:%s:%s" % (branch, dtype), lambda: rnd(w.t()).contiguous())
+
+
+Params = FullSubNet
 
 
 def init_params(generator: torch.Generator, config: Dict[str, Any] = None) -> FullSubNet:
@@ -199,10 +182,6 @@ def init_params(generator: torch.Generator, config: Dict[str, Any] = None) -> Fu
     })
 
 
-def num_params(params: FullSubNet) -> int:
-    return sum(p.numel() for p in params.parameters())
-
-
 def init_state(batch_shape: Tuple[int, ...], config: Dict[str, Any], device):
     cfg = resolve(config)
     lead = tuple(batch_shape)
@@ -217,23 +196,22 @@ def init_state(batch_shape: Tuple[int, ...], config: Dict[str, Any], device):
             "fb_sum": zeros(), "sb_sum": zeros(f), "count": zeros()}
 
 
-@functools.lru_cache(maxsize=16)
-def _constant_on(name: str, bins: int, n: int, device: torch.device) -> torch.Tensor:
-    """``neighbours``: [bins, 2n + 1] bin indices f - n .. f + n, reflected at
-    the edges (torch's reflect padding: -1 -> 1); ``ones``: [n, 1] ones, the
-    right operand of a fixed-order row sum."""
-    with torch.inference_mode(False):
-        if name == "ones":
-            return torch.ones((n, 1), device=device)
-        idx = np.arange(bins)[:, None] + np.arange(-n, n + 1)[None, :]
-        idx = np.where(idx < 0, -idx, idx)
-        idx = np.where(idx > bins - 1, 2 * (bins - 1) - idx, idx)
-        return torch.as_tensor(idx, dtype=torch.long, device=device)
+def _neighbours(bins: int, n: int) -> np.ndarray:
+    """[bins, 2n + 1] bin indices f - n .. f + n, reflected at the edges
+    (torch's reflect padding: -1 -> 1)."""
+    idx = np.arange(bins)[:, None] + np.arange(-n, n + 1)[None, :]
+    idx = np.where(idx < 0, -idx, idx)
+    return np.where(idx > bins - 1, 2 * (bins - 1) - idx, idx).astype(np.int64)
+
+
+def _ones(n: int) -> np.ndarray:
+    """[n, 1] ones, the right operand of a fixed-order row sum."""
+    return np.ones((n, 1), np.float32)
 
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
     """x [..., K] -> [...]: each row summed in ``rowmm``'s fixed order."""
-    return matmul(x, _constant_on("ones", 0, x.shape[-1], x.device)).squeeze(-1)
+    return matmul(x, constant_on(_ones, x.device, x.shape[-1])).squeeze(-1)
 
 
 def _linear(x, params: FullSubNet, branch: str, cfg):
@@ -277,7 +255,7 @@ def _frame(params: FullSubNet, st, mag, cfg):
         fb = torch.relu(_linear(x, params, "fb", cfg))                           # [n, F]
     with profiling.span("fullsubnet.subband", frames=1, rows=n * f) as span:
         before = lstm.launches + rowmm.launches
-        idx = _constant_on("neighbours", f, cfg["sb_num_neighbors"], mag.device)
+        idx = constant_on(_neighbours, mag.device, f, cfg["sb_num_neighbors"])
         feats = torch.cat([mag[:, idx], fb.unsqueeze(-1)], dim=-1)              # [n, F, 32]
         new["sb_sum"] = st["sb_sum"] + _row_sum(feats)
         sb_in = feats / (new["sb_sum"] / (count.unsqueeze(-1) * width) + EPS).unsqueeze(-1)
@@ -333,5 +311,5 @@ def apply_sequence(params: FullSubNet, state, re, im, config: Dict[str, Any] = N
     return _unflat(st, lead), (mr.reshape(re.shape), mi.reshape(re.shape))
 
 
-__all__ = ["DEFAULT_CONFIG", "EPS", "FullSubNet", "resolve", "sb_features", "init_params",
+__all__ = ["DEFAULT_CONFIG", "EPS", "FullSubNet", "Params", "resolve", "sb_features", "init_params",
            "init_state", "step", "apply_sequence", "num_params"]

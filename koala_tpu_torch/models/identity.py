@@ -8,22 +8,12 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
-import numpy as np
 import torch
-from torch import nn
+
+from .base import Placeholder
 
 DEFAULT_CONFIG = {"kind": "identity"}
-
-
-class Identity(nn.Module):
-    """Parameters of the identity model: one unused placeholder, as in the
-    JAX package's tree ({"empty": [0.0]})."""
-
-    def __init__(self, tree=None):
-        super().__init__()
-        empty = np.zeros((1,), np.float32) if tree is None else tree["empty"]
-        self.empty = nn.Parameter(torch.tensor(np.asarray(empty, np.float32)),
-                                  requires_grad=False)
+Identity = Params = Placeholder     # one unused placeholder leaf
 
 
 def init_params(key=None, config: Dict[str, Any] = None) -> Identity:
@@ -37,11 +27,12 @@ def init_state(batch_shape: Tuple[int, ...], config: Dict[str, Any], device):
 
 
 def step(params, state, re, im, config: Dict[str, Any] = None):
+    """A unit mask of the spectrum's shape: one frame [*, K] or T [*, T, K]."""
     return state, torch.ones_like(re)
 
 
-def apply_sequence(params, state, re, im, config: Dict[str, Any] = None):
-    return state, torch.ones_like(re)
+apply_sequence = step
 
 
-__all__ = ["DEFAULT_CONFIG", "Identity", "init_params", "init_state", "step", "apply_sequence"]
+__all__ = ["DEFAULT_CONFIG", "Identity", "Params", "init_params", "init_state", "step",
+           "apply_sequence"]

@@ -56,6 +56,7 @@ plain autograd.
 from __future__ import annotations
 
 import functools
+import json
 import logging
 from typing import Any, Dict, Tuple
 
@@ -68,6 +69,7 @@ from ..constants import NUM_BINS
 from ..ops.kernels.floor import floor_scan, floor_scan_ref, floor_scan_trainable
 from ..ops.kernels.gru import H100_SMS, gru_stack, gru_stack_trainable, plan_launch
 from ..ops.kernels.rowmm import matmul
+from .base import ParamModule, constant_on, num_params, param
 
 logger = logging.getLogger("koala_tpu_torch")
 
@@ -125,12 +127,6 @@ def normalize_config(config: Dict[str, Any], params=None) -> Dict[str, Any]:
         "(bins=%d, config %r)" % (enc_in, cfg["bins"], config))
 
 
-def _param(a) -> nn.Parameter:
-    if isinstance(a, torch.Tensor):
-        return nn.Parameter(a.detach().float().clone(), requires_grad=False)
-    return nn.Parameter(torch.tensor(np.asarray(a, np.float32)), requires_grad=False)
-
-
 def init_params(generator: torch.Generator, config: Dict[str, Any] = None) -> "MaskGRU":
     """Fresh weights on the generator's device: uniform +-1/sqrt(fan_in),
     zero biases, the decoder bias at +3 (an untrained model is a
@@ -168,8 +164,8 @@ class Dense(nn.Module):
 
     def __init__(self, w, b):
         super().__init__()
-        self.w = _param(w)
-        self.b = _param(b)
+        self.w = param(w)
+        self.b = param(b)
 
 
 class GRULayer(nn.Module):
@@ -177,13 +173,12 @@ class GRULayer(nn.Module):
 
     def __init__(self, wx, bx, wh, bh):
         super().__init__()
-        self.wx, self.bx = _param(wx), _param(bx)
-        self.wh, self.bh = _param(wh), _param(bh)
+        self.wx, self.bx = param(wx), param(bx)
+        self.wh, self.bh = param(wh), param(bh)
 
 
-class MaskGRU(nn.Module):
-    """Parameters of the mask model. ``state_dict`` keys map one to one onto
-    the ``.pv`` flat names (``gru/0/wx`` -> ``gru.0.wx``)."""
+class MaskGRU(ParamModule):
+    """Parameters of the mask model."""
 
     def __init__(self, tree):
         super().__init__()
@@ -193,20 +188,6 @@ class MaskGRU(nn.Module):
         self.dec = Dense(tree["dec"]["w"], tree["dec"]["b"])
         # the passthrough gate is optional: pre-gate model files have none
         self.gate = Dense(tree["gate"]["w"], tree["gate"]["b"]) if "gate" in tree else None
-        self._derived: Dict[str, Tuple[Any, Any]] = {}
-
-    def derived(self, name: str, build):
-        """A tensor derived from the weights (a bf16 copy, a stacked or padded
-        layout), built once and rebuilt when a weight changes or moves."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        hit = self._derived.get(name)
-        if hit is None or hit[0] != key:
-            # a plain tensor without a graph: usable in a graph recorded later
-            # (inference_mode(False) alone would switch grad mode on)
-            with torch.inference_mode(False), torch.no_grad():
-                hit = (key, build())
-            self._derived[name] = hit
-        return hit[1]
 
     def rounded(self, name: str, cfg) -> torch.Tensor:
         """Weight ``name`` (a dotted state_dict key) rounded to the compute
@@ -241,9 +222,7 @@ class MaskGRU(nn.Module):
         return self.derived("gru_stacked", build)
 
 
-def num_params(params: MaskGRU) -> int:
-    """The number of parameters of a model (every weight and bias)."""
-    return sum(p.numel() for p in params.parameters())
+Params = MaskGRU
 
 
 def _mm(x, params: MaskGRU, name: str, cfg):
@@ -294,20 +273,14 @@ def _cep_matrix_np(bins: int, nb: int):
     return basis, bounds
 
 
-@functools.lru_cache(maxsize=16)
-def _constant_on(name: str, bins: int, nb: int, device: torch.device):
-    # made outside inference mode, so that a constant first asked for by a
-    # serving call can enter a graph that a trainer records later
-    with torch.inference_mode(False):
-        if name == "band":
-            return torch.as_tensor(_band_matrix_np(bins, nb), device=device)
-        return torch.as_tensor(_cep_matrix_np(bins, nb)[0], device=device)
+def _cep_basis_np(bins: int, nb: int):
+    return _cep_matrix_np(bins, nb)[0]
 
 
 def cep_features(re, im, cfg):
     """Spectrum [*, K] -> cepstral-peak features [*, cep_feats]."""
     nb = cfg["cep_feats"]
-    basis = _constant_on("cep", cfg["bins"], nb, re.device)
+    basis = constant_on(_cep_basis_np, re.device, cfg["bins"], nb)
     _, bounds = _cep_matrix_np(cfg["bins"], nb)
     logmag = 0.5 * torch.log(re * re + im * im + cfg["feat_eps"] ** 2)
     c = matmul(logmag, basis)
@@ -317,7 +290,7 @@ def cep_features(re, im, cfg):
 
 def band_log_energy(re, im, cfg):
     """Spectrum [*, K] -> banded log-energy [*, nb] (floor-tracker domain)."""
-    m = _constant_on("band", cfg["bins"], cfg["snr_bands"], re.device)
+    m = constant_on(_band_matrix_np, re.device, cfg["bins"], cfg["snr_bands"])
     e = matmul(re * re + im * im, m)
     return torch.log(e + cfg["feat_eps"] ** 2)
 
@@ -386,16 +359,21 @@ def _kernel_branch(cfg, t: torch.Tensor) -> bool:
 _FALLBACK_WARNED: set = set()
 
 
-def _warn_fallback(reason: str, cfg) -> bool:
-    """Say loudly (once per reason and shape) that the card runs the scan
-    branch instead of the kernels."""
-    key = (reason, cfg.get("num_layers"), cfg.get("hidden"))
+def _warn_fallback(key, message: str, *args) -> bool:
+    """Say loudly, once per ``key``, that the card runs a path without a
+    kernel (``logger.warning(message, *args)``); -> False."""
     if key not in _FALLBACK_WARNED:
         _FALLBACK_WARNED.add(key)
-        logger.warning("mask_gru: GRU kernel DISABLED (%s; layers=%s hidden=%s) - "
-                       "sequence mode falls back to the scan branch",
-                       reason, cfg.get("num_layers"), cfg.get("hidden"))
+        logger.warning(message, *args)
     return False
+
+
+def _gru_fallback(reason: str, cfg) -> bool:
+    """The GRU gate's warning: once per reason and shape."""
+    layers, hidden = cfg.get("num_layers"), cfg.get("hidden")
+    return _warn_fallback((reason, layers, hidden),
+                          "mask_gru: GRU kernel DISABLED (%s; layers=%s hidden=%s) - "
+                          "sequence mode falls back to the scan branch", reason, layers, hidden)
 
 
 def gru_kernel_fits(batch: int, hidden: int, layers: int, sms: int) -> bool:
@@ -424,16 +402,35 @@ def _gru_kernel_enabled(cfg, x) -> bool:
     if not _kernel_branch(cfg, x):
         return False
     if cfg.get("compute_dtype") != "bfloat16":
-        return _warn_fallback("compute_dtype != bfloat16", cfg)
+        return _gru_fallback("compute_dtype != bfloat16", cfg)
     if cfg["hidden"] % 16:
-        return _warn_fallback("hidden not a multiple of 16", cfg)
+        return _gru_fallback("hidden not a multiple of 16", cfg)
     sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
            if x.device.type == "cuda" else H100_SMS)
     # the plan depends on the batch only through how rows are laid out, so
     # one warning stands for every batch of this width and depth
     if not gru_kernel_fits(_rows(x), cfg["hidden"], cfg["num_layers"], sms):
-        return _warn_fallback("no GRU kernel launch plan", cfg)
+        return _gru_fallback("no GRU kernel launch plan", cfg)
     return True
+
+
+def fused_hops(params: MaskGRU, config: Dict[str, Any], hops) -> int:
+    """The leading hops of ``hops`` [B, T, 256] that ``Engine.sequence_fast``
+    sends through the fused engine kernel: the most whole ``T_BLOCK``s, or 0
+    off the kernel branch (of ``config`` as given: no ``use_pallas``, none),
+    without a gate, or where the kernel refuses (on a card, warned once)."""
+    from ..ops.kernels.engine_fused import T_BLOCK, fused_sequence_supported
+
+    if hops.dim() != 3 or not _kernel_branch(config, hops) or params.gate is None:
+        return 0
+    t8 = hops.shape[1] // T_BLOCK * T_BLOCK
+    if not t8 or fused_sequence_supported(config, hops.shape[0], t8, hops.device):
+        return t8
+    if hops.device.type == "cuda":
+        _warn_fallback(("fused", json.dumps(config, sort_keys=True)),
+                       "engine: fused engine kernel DISABLED for this model (config or shape "
+                       "not supported) - sequence_fast runs the unfused sequence path")
+    return 0
 
 
 def step(params: MaskGRU, state, re, im, config: Dict[str, Any] = None):
@@ -536,5 +533,5 @@ def apply_sequence(params: MaskGRU, state, re, im, config: Dict[str, Any] = None
 __all__ = [
     "DEFAULT_CONFIG", "TRAIN_CONFIG", "normalize_config", "expected_enc_in",
     "MaskGRU", "init_params", "init_state", "step", "apply_sequence", "features",
-    "band_log_energy", "cep_features", "num_params", "gru_kernel_fits",
+    "band_log_energy", "cep_features", "num_params", "gru_kernel_fits", "fused_hops", "Params",
 ]

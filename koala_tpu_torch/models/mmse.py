@@ -15,11 +15,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
-import numpy as np
 import torch
-from torch import nn
 
 from ..constants import NUM_BINS
+from .base import Placeholder
 
 DEFAULT_CONFIG = {
     "kind": "mmse",
@@ -34,17 +33,7 @@ DEFAULT_CONFIG = {
 # anyway, and unbounded values make the recurrent state chaotic.
 _SNR_CAP = 1e6
 
-
-class MMSE(nn.Module):
-    """Parameters of the mmse model: one unused placeholder leaf, as in the
-    JAX package's tree ({"empty": [0.0]}), so that save, load and the
-    engine's parameter plumbing stay uniform across model kinds."""
-
-    def __init__(self, tree=None):
-        super().__init__()
-        empty = np.zeros((1,), np.float32) if tree is None else tree["empty"]
-        self.empty = nn.Parameter(torch.tensor(np.asarray(empty, np.float32)),
-                                  requires_grad=False)
+MMSE = Params = Placeholder         # one unused placeholder leaf
 
 
 def init_params(key=None, config: Dict[str, Any] = None) -> MMSE:
@@ -102,4 +91,5 @@ def apply_sequence(params, state, re, im, config: Dict[str, Any] = None):
     return state, torch.stack(masks, dim=t_axis)
 
 
-__all__ = ["DEFAULT_CONFIG", "MMSE", "init_params", "init_state", "step", "apply_sequence"]
+__all__ = ["DEFAULT_CONFIG", "MMSE", "Params", "init_params", "init_state", "step",
+           "apply_sequence"]

@@ -26,6 +26,7 @@ import torch
 from .._version import __version__
 from ..constants import MODEL_MAGIC
 from ..errors import ERROR_STACK, KoalaIOError, raise_with_stack
+from .registry import get_model, kind_of, reconcile_config
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -76,9 +77,7 @@ def params_to_numpy(params):
 def save_params(path: str, params, config: Dict[str, Any]) -> None:
     """Write a parameter module or tree with its fully resolved config."""
     tree = params_to_numpy(params)
-    if (config or {}).get("kind", "mask_gru") == "mask_gru":
-        from . import mask_gru
-        config = mask_gru.normalize_config(config, tree)
+    config = reconcile_config(config, tree)
     flat = _flatten(tree)
     meta = json.dumps({
         "magic": MODEL_MAGIC.decode("ascii", "replace").rstrip("\x00"),
@@ -119,15 +118,12 @@ def load_params(path: str) -> Tuple[Any, Dict[str, Any]]:
         ERROR_STACK.push("model load failed")
         raise_with_stack(KoalaIOError, "Invalid model file")
     params, config = _unflatten(flat), meta["config"]
-    if (config or {}).get("kind", "mask_gru") == "mask_gru":
-        # Reconcile the config's feature switches with the encoder weight
-        # shape (legacy files predate some switches; the weights decide).
-        from . import mask_gru
-        try:
-            config = mask_gru.normalize_config(config, params)
-        except (ValueError, KeyError, TypeError) as e:
-            ERROR_STACK.push("incompatible model file `%s`: %s" % (path, e))
-            raise_with_stack(KoalaIOError, "Invalid model file")
+    try:
+        # legacy files predate some of a config's switches: the weights decide
+        config = reconcile_config(config, params)
+    except (ValueError, KeyError, TypeError) as e:
+        ERROR_STACK.push("incompatible model file `%s`: %s" % (path, e))
+        raise_with_stack(KoalaIOError, "Invalid model file")
     return params, config
 
 
@@ -139,16 +135,11 @@ def default_model_path() -> str:
 
 def params_from_numpy(tree, device, kind: str = None) -> torch.nn.Module:
     """Parameter tree of numpy arrays -> the port's parameter module on
-    ``device``. ``kind`` is the model file's (``config["kind"]``); without
-    it, a tree with a ``gru`` key is a mask_gru model and one with only the
-    placeholder leaf an identity model (mmse has the same one: pass the kind)."""
-    from . import fullsubnet, identity, mask_gru, mmse
-
-    if kind is None:
-        kind = "mask_gru" if "gru" in tree else "identity"
-    module = {"mask_gru": mask_gru.MaskGRU, "mmse": mmse.MMSE,
-              "fullsubnet": fullsubnet.FullSubNet, "identity": identity.Identity}[kind]
-    return module(tree).to(torch.device(device))
+    ``device``: the ``Params`` of ``kind``, the model file's
+    (``config["kind"]``); without it, the kind the tree's layout implies
+    (``registry.kind_of``)."""
+    params = get_model(kind or kind_of(None, tree)).Params(tree)
+    return params.to(torch.device(device))
 
 
 def state_from_numpy(tree, device):

@@ -1,12 +1,16 @@
-"""Model registry: maps a model ``kind`` (from the model file's config) to
-its implementation, behind one contract:
+"""Model registry: the one table of model kinds. A model file's config names
+its ``kind`` (``kind_of``); each kind is one module of ``models/`` with
 
+    Params(tree), init_params(generator, config)  -> parameter module
     init_state(batch_shape, config, device)       -> state tree
     step(params, state, re, im, config)           -> (state', mask)
     apply_sequence(params, state, re, im, config) -> (state', masks)
 
-A mask is a tensor (real) or a pair (mask_re, mask_im) (complex; the
-engine's ``apply_mask``). Families: ``mask_gru`` (the flagship), ``mmse``
+and, where it needs them, ``normalize_config(config, tree)`` (the config
+reconciled with its weights) and ``fused_hops(params, config, hops)`` (the
+leading hops that ``Engine.sequence_fast`` sends through the fused engine
+kernel). A mask is a tensor (real) or a pair (mask_re, mask_im) (complex;
+the engine's ``apply_mask``). Kinds: ``mask_gru`` (the flagship), ``mmse``
 (the parameter-free baseline), ``fullsubnet`` (FullSubNet, a full-band and a
 sub-band LSTM with a complex mask) and ``identity``.
 """
@@ -25,6 +29,9 @@ MODEL_REGISTRY: Dict[str, Any] = {
     "identity": identity,
 }
 
+# the kind of a legacy model file, whose config names none
+DEFAULT_KIND = "mask_gru"
+
 
 def get_model(kind: str):
     if kind not in MODEL_REGISTRY:
@@ -34,4 +41,21 @@ def get_model(kind: str):
     return MODEL_REGISTRY[kind]
 
 
-__all__ = ["MODEL_REGISTRY", "get_model"]
+def kind_of(config, tree=None) -> str:
+    """The model kind of a config (``DEFAULT_KIND`` where it names none).
+    Given only a parameter ``tree``, the kind its layout implies: a tree with
+    a ``gru`` key is the default kind's, one with only the placeholder leaf
+    an identity model's (mmse has the same one: pass its config)."""
+    if config is None and tree is not None:
+        return DEFAULT_KIND if "gru" in tree else "identity"
+    return (config or {}).get("kind", DEFAULT_KIND)
+
+
+def reconcile_config(config, tree):
+    """A model file's config reconciled with its weights by its kind's
+    ``normalize_config``; the config as it is for a kind without one."""
+    normalize = getattr(MODEL_REGISTRY.get(kind_of(config)), "normalize_config", None)
+    return config if normalize is None else normalize(config, tree)
+
+
+__all__ = ["MODEL_REGISTRY", "DEFAULT_KIND", "get_model", "kind_of", "reconcile_config"]

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from ... import profiling
 from ...constants import FFT_SIZE, FRAME_LENGTH, NUM_BINS
 from ...models.mask_gru import _band_matrix_np, _cep_matrix_np
+from ...models.registry import kind_of
 from ..stft import _windowed_bases
 from . import _build
 from .gru import layers_step, plan_launch
@@ -105,7 +106,7 @@ def fused_sequence_supported(cfg, batch: int, t_len: int, device) -> bool:
     (``plan_launch``) and the widest stage's block must fit the shared
     memory, as the CUDA source lays it out; the CPU's plain version has no
     such limits."""
-    if cfg.get("kind", "mask_gru") != "mask_gru":
+    if kind_of(cfg) != "mask_gru":
         return False
     if cfg.get("bins", NUM_BINS) != NUM_BINS:
         return False

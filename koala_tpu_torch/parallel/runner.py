@@ -41,8 +41,7 @@ import torch.distributed as dist
 from .. import profiling
 from ..constants import FRAME_LENGTH, SAMPLE_RATE
 from ..device import device_scope
-from ..engine.core import make_engine
-from ..models import params_io
+from ..engine.stream import load_model
 from .mesh import Mesh, make_mesh, replicate
 from .upload import Uploader
 
@@ -76,10 +75,8 @@ class CorpusRunner:
         lo, hi = self.mesh.local_rows(global_batch)
         self.local_batch = hi - lo
 
-        tree, config = params_io.load_params(model_path)
-        kind = config.get("kind", "mask_gru")
-        self.engine = make_engine(kind, config)
-        self.params = replicate(self.mesh, params_io.params_from_numpy(tree, "cpu", kind))
+        self.engine, params = load_model(model_path, "cpu")
+        self.params = replicate(self.mesh, params)
         self.batch_number = 0           # batches issued; each batch's spans carry it
         self.uploader = Uploader(self.mesh.devices)
 

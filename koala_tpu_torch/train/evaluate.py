@@ -23,6 +23,7 @@ from ..constants import DELAY_SAMPLE, FRAME_LENGTH
 from ..device import resolve_device
 from ..engine.core import float_to_pcm, make_engine, pcm_to_float
 from ..models.params_io import params_from_numpy
+from ..models.registry import kind_of
 from .fwsnrseg import fwsnrseg
 from .stoi import stoi
 
@@ -77,9 +78,9 @@ def evaluate(params, config: Dict[str, Any], speech: np.ndarray, noise: np.ndarr
     inputs. ``params`` is the port's module or a numpy tree."""
     dev = resolve_device(device)
     config = dict(config, use_pallas=False)
-    engine = make_engine(config.get("kind", "mask_gru"), config)
+    engine = make_engine(kind_of(config), config)
     if not isinstance(params, torch.nn.Module):
-        params = params_from_numpy(params, dev)
+        params = params_from_numpy(params, dev, engine.kind)
     params = params.to(dev)
 
     mixed = mix_pcm(speech, noise)

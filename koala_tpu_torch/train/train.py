@@ -33,6 +33,7 @@ from ..engine.core import make_engine
 from ..errors import ERROR_STACK, KoalaInvalidArgumentError, raise_with_stack
 from ..models import mask_gru
 from ..models.params_io import params_from_numpy
+from ..models.registry import kind_of
 from ..parallel.mesh import Mesh
 from ..ops import stft as stft_ops
 from .data import MixtureSampler
@@ -100,7 +101,7 @@ _DISTORTION_W = float(os.environ.get("KOALA_LOSS_DISTORTION_W", "20.0"))
 def make_loss_fn(config: Dict[str, Any]) -> Callable:
     """-> loss_fn(params, noisy [B,S], clean [B,S]) -> scalar loss, on the
     device of ``noisy``. Every segment starts from a fresh engine state."""
-    engine = make_engine(config.get("kind", "mask_gru"), config)
+    engine = make_engine(kind_of(config), config)
 
     def loss_fn(params, noisy, clean):
         b, s = noisy.shape

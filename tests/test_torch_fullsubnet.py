@@ -19,6 +19,7 @@ from benchmark.reference.pv import read_pv
 from koala_tpu_torch.constants import FRAME_LENGTH
 from koala_tpu_torch.engine.core import apply_mask, make_engine
 from koala_tpu_torch.models import fullsubnet, mask_gru, mmse, params_io
+from koala_tpu_torch.models.base import constant_on
 from koala_tpu_torch.ops.kernels import lstm
 from koala_tpu_torch.parallel.mesh import make_mesh
 from koala_tpu_torch.parallel.runner import CorpusRunner
@@ -401,7 +402,7 @@ def test_unsupported_settings_raise(key, value):
 
 
 def test_neighbours_are_reflect_padding():
-    idx = fullsubnet._constant_on("neighbours", 257, 15, torch.device("cpu"))
+    idx = constant_on(fullsubnet._neighbours, torch.device("cpu"), 257, 15)
     mag = torch.arange(257.0)
     padded = torch.nn.functional.pad(mag[None, None], (15, 15), mode="reflect")[0, 0]
     want = padded.unfold(0, 31, 1)

@@ -3,6 +3,7 @@ against koala_tpu on the same weights and spectra."""
 
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -20,6 +21,8 @@ from koala_tpu_torch.engine.core import make_engine
 from koala_tpu_torch.models import mask_gru as tmask
 from koala_tpu_torch.models import mmse as tmmse
 from koala_tpu_torch.models import params_io as tio
+from koala_tpu_torch.models.base import Placeholder
+from koala_tpu_torch.models.registry import MODEL_REGISTRY, kind_of
 
 from torch_ref import jax_params, to_numpy
 
@@ -298,3 +301,107 @@ def test_identity_init_params_matches_jax():
     _, out = engine.sequence(mine, engine.init_state((), "cpu"), hops)
     torch.testing.assert_close(out.reshape(-1)[FRAME_LENGTH:], hops.reshape(-1)[:-FRAME_LENGTH],
                                atol=1e-6, rtol=0)
+
+
+# -- the model seam: every kind through the registry alone ---------------------
+
+
+@pytest.mark.parametrize("kind", sorted(MODEL_REGISTRY))
+def test_every_kind_round_trips_through_the_model_file(kind, tmp_path):
+    """init_params -> save_params -> load_params -> params_from_numpy gives
+    the registry's parameter class with the weights (as float16 rounds them)
+    and the config: byte-equal for every kind but mask_gru, whose config is
+    reconciled with its weights (test_normalize_config_infers_legacy_layouts)."""
+    model = MODEL_REGISTRY[kind]
+    cfg = model.DEFAULT_CONFIG
+    params = model.init_params(torch.Generator().manual_seed(3), cfg)
+    path = str(tmp_path / ("%s.pv" % kind))
+    tio.save_params(path, params, cfg)
+    tree, loaded_cfg = tio.load_params(path)
+    if kind == "mask_gru":
+        assert loaded_cfg == tmask.normalize_config(cfg, tree)
+    else:
+        assert json.dumps(loaded_cfg) == json.dumps(cfg)
+    assert kind_of(loaded_cfg) == kind
+    back = tio.params_from_numpy(tree, "cpu", kind)
+    assert type(back) is model.Params
+    want = params.state_dict()
+    assert set(back.state_dict()) == set(want)
+    for k, v in back.state_dict().items():
+        assert torch.equal(v, want[k].half().float()), k
+
+
+def _toy_model():
+    """A model kind that no module of the package knows: no weights, no
+    state, a constant real mask of 0.5."""
+    toy = types.ModuleType("toy_model")
+    toy.DEFAULT_CONFIG = {"kind": "toy"}
+    toy.Params = Placeholder
+    toy.init_params = lambda generator=None, config=None: Placeholder()
+    toy.init_state = lambda batch_shape, config, device: torch.zeros(
+        tuple(batch_shape) + (1,), device=torch.device(device))
+    toy.step = toy.apply_sequence = lambda params, state, re, im, config=None: (
+        state, torch.full_like(re, 0.5))
+    return toy
+
+
+def test_a_kind_registered_alone_runs_through_every_entry_point(tmp_path, monkeypatch):
+    """A new kind is one module and one registry entry: registered through the
+    registry alone, the toy kind loads from its model file and halves its
+    input through ``create_batch(...).enhance``, ``Koala.process`` and
+    ``CorpusRunner.enhance_batch``."""
+    import koala_tpu_torch
+    from koala_tpu_torch.models import registry
+    from koala_tpu_torch.parallel.mesh import make_mesh
+    from koala_tpu_torch.parallel.runner import CorpusRunner
+
+    from torch_ref import ACCESS_KEY
+
+    toy = _toy_model()
+    monkeypatch.setitem(registry.MODEL_REGISTRY, "toy", toy)
+    path = str(tmp_path / "toy.pv")
+    tio.save_params(path, toy.init_params(), toy.DEFAULT_CONFIG)
+    rng = np.random.default_rng(11)
+    t = 12
+    pcm = (rng.standard_normal((2, t * FRAME_LENGTH)) * 4000).astype(np.int16)
+    half = np.round(pcm.astype(np.float64) * 0.5)
+
+    out = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=2, model_path=path,
+                                       device="cpu").enhance(pcm)
+    assert out.shape == pcm.shape and np.abs(out - half).max() <= 1
+
+    koala = koala_tpu_torch.create(ACCESS_KEY, model_path=path, device="cpu")
+    frames = pcm[0].reshape(t, FRAME_LENGTH)
+    got = np.stack([koala.process(f) for f in frames])
+    assert np.abs(got[0]).max() <= 1                      # one hop of delay
+    assert np.abs(got[1:] - half[0].reshape(t, FRAME_LENGTH)[:-1]).max() <= 1
+
+    runner = CorpusRunner(path, 2, t * FRAME_LENGTH, mesh=make_mesh(["cpu"]))
+    assert runner.engine.model is toy
+    x = pcm.astype(np.float32) / 32768.0
+    y = runner.enhance_batch(x).numpy().reshape(2, t, FRAME_LENGTH)
+    np.testing.assert_allclose(y[:, 1:], 0.5 * x.reshape(2, t, FRAME_LENGTH)[:, :-1],
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["use_pallas_false", "no_gate"])
+def test_sequence_fast_without_the_fused_entry_is_sequence(case):
+    """A mask_gru model that the fused entry does not take (its config turns
+    the kernel branch off, or it has no passthrough gate) runs
+    ``sequence_fast`` as ``sequence``, bit for bit, at a T the fused entry
+    would take."""
+    from koala_tpu_torch.ops.kernels import engine_fused
+
+    cfg = dict(tmask.TRAIN_CONFIG, hidden=32, use_pallas=case == "no_gate")
+    params = tmask.init_params(torch.Generator().manual_seed(4), cfg)
+    if case == "no_gate":
+        params.gate = None
+    engine = make_engine("mask_gru", cfg)
+    hops = torch.randn((3, 16, FRAME_LENGTH), generator=torch.Generator().manual_seed(2)) * 0.1
+    assert engine_fused.fused_sequence_supported(cfg, 3, 16, hops.device)
+    with torch.inference_mode():
+        f_state, fast = engine.sequence_fast(params, engine.init_state((3,), "cpu"), hops)
+        s_state, plain = engine.sequence(params, engine.init_state((3,), "cpu"), hops)
+    assert torch.equal(fast, plain)
+    for k, v in tio._flatten(s_state).items():
+        assert np.array_equal(tio._flatten(f_state)[k], v), k

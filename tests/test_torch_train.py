@@ -27,6 +27,7 @@ from koala_tpu.train.data import MixtureSampler
 from koala_tpu_torch import KoalaInvalidArgumentError
 from koala_tpu_torch.io import read_wav
 from koala_tpu_torch.models import mask_gru as tmask
+from koala_tpu_torch.models.base import constant_on
 from koala_tpu_torch.models import params_io as tparams_io
 from koala_tpu_torch.train import evaluate as tevaluate
 from koala_tpu_torch.train import fwsnrseg as tfwsnrseg
@@ -224,7 +225,7 @@ def test_training_after_serving_in_inference_mode(batch):
     from koala_tpu_torch.ops import stft as tstft
 
     tstft._bases_on.cache_clear()
-    tmask._constant_on.cache_clear()
+    constant_on.cache_clear()
     noisy, clean = (torch.as_tensor(a) for a in batch)
     params = tmask.init_params(torch.Generator().manual_seed(2), SMALL)
     engine = make_engine("mask_gru", SMALL)
