@@ -31,14 +31,15 @@
    the CPU port's ``evaluate``. With ``KOALA_REFERENCE_SAMPLES`` the
    reference pair and its 8 pseudo-real variants join the sets.
 2d. The rest of the public surface, each part with its lines (``surface
-   ...``): the mmse model (no kernel of its own, as on the TPU; its STFT
-   products through ``rowmm``) through
+   ...``): the mmse model (its STFT products through ``rowmm``, its gain
+   recurrence through its own kernel, one launch a sequence call) through
    ``Koala.process``, ``Koala.enhance``, ``KoalaBatch.process``,
    ``process_chunk``, ``enhance`` (the mix at B = 64 and the battery at
    B = 21) and the StreamingServer (16 streams, backlog and live), each
-   >= 35 dB from the port on the CPU with no kernel but ``rowmm`` launched
-   and no plain version called (a traced call's device launches printed,
-   its port kernels ``rowmm``'s launches), timed, and the
+   >= 35 dB from the port on the CPU with no kernel but ``rowmm`` and the
+   gain kernel (once a sequence call) launched and no plain version called
+   (a traced call's device launches printed, its port kernels those two's
+   launches), timed, and the
    battery scored beside the CPU port's ``evaluate``; the identity model
    through ``create`` / ``create_batch`` (a 256-sample delay, and enhance
    the input itself, bit for bit, no kernel but ``rowmm``); snapshots cut at
@@ -175,12 +176,22 @@
    ``StreamingServer`` bit for bit ``Koala.process``; ``mask_gru`` and
    ``mmse`` with their masks handed over as (mask, 0) bit for bit as real
    masks; a ``{"fullsubnet": ...}`` JSON line.
-13. Prints one ``{"kernels": [...]}`` line (six entries: each kernel's
+12b. The mmse gain kernel (``csrc/mmse.cu``) bit for bit its plain version,
+   masks and every state leaf, at the corpus wash's [8192, 375, 257] and
+   ``process_chunk``'s [64, 376, 257], with its time beside its bound and
+   the plain loop's (``scripts/mmse_times_torch.py``): a ``mmse_gain ...``
+   line a shape and a ``{"mmse_gain": ...}`` JSON line; then
+   ``CorpusRunner.enhance_batch`` with ``mmse`` (64 streams of 375 frames,
+   the counts reset before it): one gain launch a batch, ``rowmm``, no other
+   kernel and no plain version, bit for bit the batch with the plain version
+   in the kernel's place (a ``mmse_gain corpus runner`` line).
+13. Prints one ``{"kernels": [...]}`` line (seven entries: each kernel's
    launches by path and in all; ``rowmm``'s times are the sum over the nine
    products at 376 x 64 rows, beside ``rowmm_simple``'s and
    ``torch.matmul``'s, with the same at 64 rows and one, and
    ``bits_equal_simple``; ``lstm_cell``'s the sum over a frame's four
-   layer-steps at B = 2048), the card's name and power limit, and, last,
+   layer-steps at B = 2048; ``mmse_gain``'s at [8192, 375, 257]), the
+   card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero. Without a CUDA card, or without the
@@ -309,10 +320,13 @@ class Recorder:
         self.orig = getattr(module, name)
         self.args = None
 
+    def record(self, args):
+        if self.args is None:
+            self.args = clone(args)
+
     def __enter__(self):
         def wrapped(*args, **kwargs):
-            if self.args is None:
-                self.args = clone(args)
+            self.record(args)
             return self.orig(*args, **kwargs)
         setattr(self.module, self.name, wrapped)
         return self
@@ -326,12 +340,19 @@ class RecordAll(Recorder):
 
     def __enter__(self):
         self.calls = []
+        return super().__enter__()
 
-        def wrapped(*args, **kwargs):
-            self.calls.append(clone(args))
-            return self.orig(*args, **kwargs)
-        setattr(self.module, self.name, wrapped)
-        return self
+    def record(self, args):
+        self.calls.append(clone(args))
+
+
+class CallCount(Recorder):
+    """A ``Recorder`` that only counts the calls."""
+
+    calls = 0
+
+    def record(self, args):
+        self.calls += 1
 
 
 def mix_streams(n: int) -> np.ndarray:
@@ -1061,8 +1082,8 @@ def pull_all(srv, n_streams, frames, deadline_s=120.0):
 class PlainCalls:
     """Counts the calls of the kernels' plain versions (the floor's, the
     GRU's with the scan branch's step, the fused entry's, the fixed-order
-    product's) and of ``torch.matmul`` (the products' route where autograd
-    records a graph) while installed."""
+    product's, the mmse gain recurrence's) and of ``torch.matmul`` (the
+    products' route where autograd records a graph) while installed."""
 
     NAMES = (("koala_tpu_torch.models.mask_gru", "floor_scan_ref"),
              ("koala_tpu_torch.models.mask_gru", "_gru_recurrent"),
@@ -1070,6 +1091,7 @@ class PlainCalls:
              ("koala_tpu_torch.ops.kernels.gru", "gru_stack_ref"),
              ("koala_tpu_torch.ops.kernels.engine_fused", "fused_sequence_ref"),
              ("koala_tpu_torch.ops.kernels.rowmm", "rowmm_ref"),
+             ("koala_tpu_torch.ops.kernels.mmse", "mmse_gain_ref"),
              ("torch", "matmul"))
 
     def __enter__(self):
@@ -2100,19 +2122,31 @@ def only_rowmm(launched) -> bool:
     return launched["rowmm"] > 0 and not any(v for k, v in launched.items() if k != "rowmm")
 
 
+def only_mmse_kernels(launched, sequences) -> bool:
+    """Whether the counted kernels in ``launched`` were the fixed-order
+    product, which did launch, and the mmse gain kernel, once for each of
+    ``sequences`` sequence calls."""
+    return (launched["rowmm"] > 0 and launched["mmse_gain"] == sequences
+            and not any(v for k, v in launched.items() if k not in ("rowmm", "mmse_gain")))
+
+
 def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
-    """Part 1 of the surface phase: the mmse model (no kernel of its own, on
-    the TPU either; its STFT products through ``rowmm``) through every entry
-    point on the card. Each path's output is held to the port on the CPU on
-    the same input (>= CHUNK_SNR_DB over all its streams); its census is one
-    traced call (device launches, of the port's kernels only ``rowmm``'s)
-    and its counters and plain-version calls are read over its timed calls
-    (only ``rowmm``, no plain call); the timed calls follow one to warm up
+    """Part 1 of the surface phase: the mmse model (its STFT products through
+    ``rowmm``, its gain recurrence through its own kernel, one launch a
+    sequence call) through every entry point on the card. Each path's output
+    is held to the port on the CPU on the same input (>= CHUNK_SNR_DB over
+    all its streams); its census is one traced call (device launches, of the
+    port's kernels only ``rowmm``'s and the gain kernel's) and its counters
+    and plain-version calls are read over its timed calls (only ``rowmm``
+    and the gain kernel, once a sequence call; no plain call, the step's
+    plain chain aside); the timed calls follow one to warm up
     (``SURFACE_REPS`` of them, the per-frame paths one pass of a stream).
     The battery paths are scored by the harness beside the CPU port's
     ``evaluate`` for the record. Returns (failures, summary)."""
     from koala_tpu_torch.constants import DELAY_SAMPLE
+    from koala_tpu_torch.models import mmse as mmse_model
     from koala_tpu_torch.models import params_io
+    from koala_tpu_torch.ops.kernels import mmse as mmse_kernel
     from koala_tpu_torch.ops.kernels import rowmm
     from koala_tpu_torch.serve import StreamingServer
     from koala_tpu_torch.train.evaluate import evaluate, harness_results
@@ -2120,10 +2154,11 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
     sets, streams, battery = bat
 
     def traced(fn):
-        """device_launches of ``fn``, and rowmm's launches in it."""
-        before = rowmm.launches
+        """device_launches of ``fn``, and the launches of rowmm and of the
+        gain kernel in it."""
+        before = rowmm.launches + mmse_kernel.launches
         total, port = device_launches(fn)
-        return total, port, rowmm.launches - before
+        return total, port, rowmm.launches + mmse_kernel.launches - before
     names, lens = list(sets), [len(x) for x in streams]
     mix = pcm[:, :T * 256]
     failures, summary, scored = [], {}, {}
@@ -2196,7 +2231,7 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
         runs, out = [], None
         torch.cuda.synchronize()
         reset_counts()
-        with PlainCalls() as plain:
+        with PlainCalls() as plain, CallCount(mmse_model, "apply_sequence") as seqs:
             for _ in range(reps):
                 inst.reset()
                 torch.cuda.synchronize()
@@ -2213,7 +2248,8 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
         key = "%s (%s)" % (name, label)
         summary[key] = {"db": db, "least_stream_db": least, "max_lsb": lsb,
                         "share_over_2_lsb": share, "device_launches_per_call": launches,
-                        "port_launches": port, "ms": runs, "plain_calls": plain.calls}
+                        "port_launches": port, "ms": runs, "plain_calls": plain.calls,
+                        "sequence_calls": seqs.calls}
         if name.endswith("process"):            # a call is a frame: its latencies
             p50, p90 = np.percentile(lat, 50), np.percentile(lat, 90)
             summary[key].update(p50_ms=p50, p90_ms=p90)
@@ -2226,14 +2262,16 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
                                                                  min(runs), reps)
         print("surface mmse %s (%s): card vs CPU %.2f dB (least stream %.2f), max|diff| %d LSB, "
               "%.2g of samples > 2 LSB; census %d device launches a call, %d of them the port's "
-              "kernels; counters %s, plain-version calls %d; %s on %s (the check %.1f s, its "
-              "trace %.1f s)" % (name, label, db, least, lsb, share, launches, port, launched,
-                                plain.calls, timing, card, time.perf_counter() - started,
-                                census_s))
-        if db < CHUNK_SNR_DB or not only_rowmm(launched) or plain.calls or port != port_want:
-            failures.append("mmse %s (%s): %.2f dB from the CPU, counters %s, %d plain calls, "
-                            "%d port kernels traced for %d rowmm launches"
-                            % (name, label, db, launched, plain.calls, port, port_want))
+              "kernels; counters %s over %d sequence calls, plain-version calls %d; %s on %s "
+              "(the check %.1f s, its trace %.1f s)"
+              % (name, label, db, least, lsb, share, launches, port, launched, seqs.calls,
+                 plain.calls, timing, card, time.perf_counter() - started, census_s))
+        if db < CHUNK_SNR_DB or not only_mmse_kernels(launched, seqs.calls) or plain.calls \
+                or port != port_want or name.endswith("process") == bool(seqs.calls):
+            failures.append("mmse %s (%s): %.2f dB from the CPU, counters %s over %d sequence "
+                            "calls, %d plain calls, %d port kernels traced for %d launches"
+                            % (name, label, db, launched, seqs.calls, plain.calls, port,
+                               port_want))
         if delay is not None:
             scored[key] = {n: figures(harness_results(
                 *sets[n], *(out[3 * i + j, :lens[3 * i + j]] for j in range(3)), delay=delay))
@@ -2276,7 +2314,7 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
     srv = server()
     torch.cuda.synchronize()
     reset_counts()
-    with PlainCalls() as plain:
+    with PlainCalls() as plain, CallCount(mmse_model, "apply_sequence") as seqs:
         s = time.perf_counter()
         srv.push_block(rows, np.full(n_srv, T, np.int32))
         got = pull_all(srv, n_srv, T)
@@ -2288,20 +2326,21 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
     print("surface mmse StreamingServer backlog (%d streams x %d frames, chunk %d): %.1f audio-s/s "
           "(%.3f s wall), device steps %d, dropped %d / %d; card vs CPU process_chunk %.2f dB "
           "(least stream %.2f), max|diff| %d LSB, %.2g > 2 LSB; census %.1f device launches a "
-          "round, %d the port's kernels; counters %s, plain-version calls %d on %s"
+          "round, %d the port's kernels; counters %s over %d sequence calls, plain-version calls "
+          "%d on %s"
           % (n_srv, T, SERVE_CHUNK, n_srv * T * 256 / 16000.0 / wall, wall, stats["device_steps"],
              stats["dropped_samples"], stats["dropped_output_samples"], db, least, lsb, share,
-             per_round, port, launched, plain.calls, card))
+             per_round, port, launched, seqs.calls, plain.calls, card))
     summary["StreamingServer backlog"] = {"audio_s_per_s": n_srv * T * 256 / 16000.0 / wall,
                                           "db": db, "max_lsb": lsb,
                                           "device_launches_per_round": per_round}
-    if db < CHUNK_SNR_DB or not only_rowmm(launched) or plain.calls or port != port_want \
-            or stats["dropped_samples"] or stats["dropped_output_samples"]:
+    if db < CHUNK_SNR_DB or not only_mmse_kernels(launched, seqs.calls) or plain.calls \
+            or port != port_want or stats["dropped_samples"] or stats["dropped_output_samples"]:
         failures.append("mmse server backlog: %.2f dB from the CPU, counters %s, %d plain calls, "
                         "%d port kernels, stats %s" % (db, launched, plain.calls, port, stats))
     live_frames = int(SURFACE_LIVE_S * 1000 / 16)
     reset_counts()
-    with PlainCalls() as plain:
+    with PlainCalls() as plain, CallCount(mmse_model, "apply_sequence") as seqs:
         lat_ms, got, _, _, stats = live_cadence(server(), rows, live_frames)
     launched = counts()
     db, least, lsb, share = card_vs_cpu(got.reshape(n_srv, -1),
@@ -2313,9 +2352,10 @@ def surface_mmse(kt, card, reset_counts, counts, pcm, bat, path):
           "on %s" % (n_srv, SURFACE_LIVE_S, p50, p90, len(lat_ms), stats["device_steps"], db,
                      least, lsb, launched, plain.calls, card))
     summary["StreamingServer live"] = {"p50_ms": p50, "p90_ms": p90, "db": db, "max_lsb": lsb}
-    if db < CHUNK_SNR_DB or p50 >= 16.0 or not only_rowmm(launched) or plain.calls:
-        failures.append("mmse server live: %.2f dB, p50 %.3f ms, counters %s, %d plain calls"
-                        % (db, p50, launched, plain.calls))
+    if db < CHUNK_SNR_DB or p50 >= 16.0 or not only_mmse_kernels(launched, seqs.calls) \
+            or plain.calls:
+        failures.append("mmse server live: %.2f dB, p50 %.3f ms, counters %s over %d sequence "
+                        "calls, %d plain calls" % (db, p50, launched, seqs.calls, plain.calls))
     return failures, summary
 
 
@@ -2457,9 +2497,9 @@ def surface_snapshots(kt, card, reset_counts, counts, pcm, battery, path, totals
                 bad_layout = [w for w, snap in (("card", snap_card), ("CPU", snap_cpu))
                               if {k: np.shape(v) for k, v in snap.items()} != layout
                               or any(np.asarray(v).dtype != np.float32 for v in snap.values())]
-                want = {"floor_scan": 0, "gru_stack": 0, "engine_fused": 0}
+                want = {"floor_scan": 0, "gru_stack": 0, "engine_fused": 0, "mmse_gain": 1}
                 if model == "mask_gru":
-                    want = {"floor_scan": 1, "gru_stack": 1,
+                    want = {"floor_scan": 1, "gru_stack": 1, "mmse_gain": 0,
                             "engine_fused": int(mode == "enhance")}
                     if mode == "enhance":
                         want["engine_fused_device"] = \
@@ -2657,7 +2697,7 @@ def surface_phase(kt, card, reset_counts, counts, pcm):
     bat = battery_streams(load_script("train_model_torch"))
     battery = bat[2]
     totals = dict.fromkeys(("floor_scan", "gru_stack", "gru_stack_hs", "engine_fused",
-                            "engine_fused_device", "rowmm", "rowmm_simple"), 0)
+                            "engine_fused_device", "rowmm", "rowmm_simple", "mmse_gain"), 0)
     failures, summary, held, fused_held, front = [], {}, {}, {}, None
     with tempfile.TemporaryDirectory() as tmp:
         mmse_path = os.path.join(tmp, "mmse.pv")
@@ -2865,7 +2905,7 @@ def cuts_phase(kt, card, reset_counts, counts, pcm):
 
     battery = battery_streams(load_script("train_model_torch"))[2]
     totals = dict.fromkeys(("floor_scan", "gru_stack", "gru_stack_hs", "engine_fused",
-                            "engine_fused_device", "rowmm", "rowmm_simple"), 0)
+                            "engine_fused_device", "rowmm", "rowmm_simple", "mmse_gain"), 0)
     failures, summary = [], {}
     with tempfile.TemporaryDirectory() as tmp:
         mmse_path = os.path.join(tmp, "mmse.pv")
@@ -2896,6 +2936,83 @@ def cuts_phase(kt, card, reset_counts, counts, pcm):
     if failures:
         fail("cuts: " + "; ".join(failures))
     return totals
+
+
+def mmse_gain_phase(card, reset_counts, counts):
+    """Phase 12b: the mmse gain kernel (csrc/mmse.cu) held bit for bit to its
+    plain version on the card, masks and every state leaf, at the corpus
+    wash's [8192, 375, 257] and ``process_chunk``'s [64, 376, 257], each with
+    its CUDA-event time beside its bound and the plain loop's time
+    (``scripts/mmse_times_torch.py``'s ``measure``): a ``mmse_gain ...``
+    line a shape and a ``{"mmse_gain": ...}`` JSON line. Then the path the
+    kernel serves, ``CorpusRunner.enhance_batch`` with ``mmse`` on
+    ``MMSE_RUNNER_B`` streams of 375 frames: one gain launch a batch, ``rowmm``
+    and no other kernel, no plain version, and the same bits as the batch
+    with the plain version in the kernel's place (a ``mmse_gain corpus
+    runner`` line). Returns the kernel's entry of the ``kernels`` line."""
+    from koala_tpu_torch.models import mmse as mmse_model
+    from koala_tpu_torch.models import params_io
+    from koala_tpu_torch.ops.kernels import mmse as mmse_kernel
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh
+
+    before = mmse_kernel.launches
+    entries = load_script("mmse_times_torch").measure(torch.device("cuda", 0))
+    for e in entries:
+        print("mmse_gain [%d, %d, %d]: bits %s the plain version's; %.4f ms%s, bound %.4f ms "
+              "(%s), %.1f%% of it, %.0f GB/s; the plain loop %.2f ms on %s"
+              % (e["streams"], e["frames"], e["bins"],
+                 "equal to" if e["bits_equal"] else "DIFFER (%s) from" % e["differ"], e["ms"],
+                 " queued" if e["queued"] else "", e["bound_ms"], e["bound_by"],
+                 e["roofline_pct"], e["gb_per_s"], e["plain_ms"], card))
+    print("mmse_gain: the hold above made %d launches" % (mmse_kernel.launches - before))
+    print(json.dumps({"mmse_gain": entries, "card": card}), flush=True)
+    bad = [e for e in entries if not e["bits_equal"]]
+    if bad:
+        fail("mmse_gain: the kernel differs from its plain version at %s"
+             % [(e["streams"], e["frames"], e["differ"]) for e in bad])
+
+    pcm = mix_streams(375 * 256)[:MMSE_RUNNER_B].astype(np.float32) / 32768.0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mmse.pv")
+        params_io.save_params(path, mmse_model.init_params(), mmse_model.DEFAULT_CONFIG)
+        runner = CorpusRunner(path, global_batch=MMSE_RUNNER_B, utterance_samples=375 * 256,
+                              mesh=make_mesh(["gpu:0"]))
+    runner.enhance_batch(pcm)                    # warm-up (lazy set-up)
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainCalls() as plain:
+        out = [runner.enhance_batch(pcm).clone() for _ in range(MMSE_RUNNER_BATCHES)]
+        torch.cuda.synchronize()
+    launched = counts()
+    kernel = mmse_kernel.mmse_gain
+    mmse_kernel.mmse_gain = mmse_kernel.mmse_gain_ref
+    try:
+        want = runner.enhance_batch(pcm)
+    finally:
+        mmse_kernel.mmse_gain = kernel
+    same = all(torch.equal(o, want) for o in out)
+    print("mmse_gain corpus runner: %d batches of %d x 375 frames, launches %s, %d plain calls, "
+          "bits %s the plain version's on %s"
+          % (MMSE_RUNNER_BATCHES, MMSE_RUNNER_B, launched, plain.calls,
+             "equal to" if same else "DIFFER from", card), flush=True)
+    if not only_mmse_kernels(launched, MMSE_RUNNER_BATCHES) or plain.calls:
+        fail("mmse_gain: the corpus runner's batches should launch rowmm and the gain kernel "
+             "once a batch, no other kernel and no plain version: %s, %d plain calls"
+             % (launched, plain.calls))
+    if not same:
+        fail("mmse_gain: the corpus runner's batch with the kernel is not the batch with its "
+             "plain version")
+    wash = entries[0]
+    return {"name": "mmse_gain", "route": "cuda", "source": "koala_tpu_torch/csrc/mmse.cu",
+            "replaces": None, "ms": wash["ms"], "plain_ms": wash["plain_ms"],
+            "library_ms": None, "bound_ms": wash["bound_ms"], "bound_by": wash["bound_by"],
+            "shape": [wash["streams"], wash["frames"], wash["bins"]], "shapes": entries,
+            "launches_by_path": {"corpus_runner": launched["mmse_gain"]}}
+
+
+# the corpus runner's batch of mmse streams in phase 12b, and the batches counted
+MMSE_RUNNER_B = 64
+MMSE_RUNNER_BATCHES = 2
 
 
 # FullSubNet's phase: the LSTM kernel's widths (kx, H) and the rows it takes at
@@ -3111,6 +3228,7 @@ def main() -> None:
     from koala_tpu_torch.models import identity as identity_model
     from koala_tpu_torch.models import mask_gru as mask_gru_model
     from koala_tpu_torch.ops.kernels import _build, engine_fused, floor, gru, rowmm
+    from koala_tpu_torch.ops.kernels import mmse as mmse_kernel
     from koala_tpu_torch.profiling import time_ms
 
     # True float32 for every float32 product (plain versions, STFT): no TF32.
@@ -3133,7 +3251,8 @@ def main() -> None:
                 "engine_fused_device": (engine_fused, "device_launches"),
                 "rowmm": (rowmm, "launches"),
                 # the first design's kernel: launched by no path, only to hold the others
-                "rowmm_simple": (rowmm, "simple_launches")}
+                "rowmm_simple": (rowmm, "simple_launches"),
+                "mmse_gain": (mmse_kernel, "launches")}
 
     def reset_counts():
         for m, attr in counters.values():
@@ -3518,6 +3637,14 @@ def main() -> None:
     lstm_entry = fullsubnet_phase(kt, dev, card)
     phase_s["fullsubnet"] = time.perf_counter() - s
 
+    # ---- 12b. the mmse gain kernel at the corpus wash's shape
+    s = time.perf_counter()
+    mmse_entry = mmse_gain_phase(card, reset_counts, counts)
+    phase_s["mmse_gain"] = time.perf_counter() - s
+    mmse_entry["launches_by_path"].update(surface=surface_counts["mmse_gain"],
+                                          cuts=cuts_counts["mmse_gain"])
+    mmse_entry["launches"] = sum(mmse_entry["launches_by_path"].values())
+
     # every kernel's launches, by the path that made them
     by_path = {
         "floor_scan": {"process_chunk": launches["floor_scan"],
@@ -3593,12 +3720,13 @@ def main() -> None:
     kb.delete()
     print("chip_smoke: %.1f s from the build on, of which one stream's enhance %.1f s, "
           "acceptance %.1f s, surface %.1f s, cuts %.1f s, bench %.1f s, bench_sweep %.1f s, "
-          "pod_wash %.1f s, gate %.1f s, demo %.1f s, generators %.1f s, fullsubnet %.1f s"
+          "pod_wash %.1f s, gate %.1f s, demo %.1f s, generators %.1f s, fullsubnet %.1f s, "
+          "mmse_gain %.1f s"
           % (time.perf_counter() - t0, single_s, accept_s, surface_s, cuts_s, phase_s["bench"],
              phase_s["bench_sweep"], phase_s["pod_wash"], phase_s["gate"], phase_s["demo"],
-             phase_s["generators"], phase_s["fullsubnet"]))
+             phase_s["generators"], phase_s["fullsubnet"], phase_s["mmse_gain"]))
 
-    kernels.append(lstm_entry)
+    kernels += [lstm_entry, mmse_entry]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,19 +5,26 @@ PSD, a decision-directed a-priori SNR estimate, and a Wiener gain with a
 spectral floor. It needs no trained weights, so it serves as a quality
 floor for the learned model and as a deterministic enhancer for tests.
 
-Everything is elementwise over [*, K] bins in plain PyTorch: the JAX version
-runs outside any Pallas kernel, so this one has no kernel either. The state
-is O(1) per stream, so the engine's masked commit and reset apply as they do
-to the GRU model.
+The rule is elementwise over [*, K] bins. ``step`` runs one frame of it as a
+plain PyTorch chain (``ops/kernels/mmse.py`` ``gain_frame``); ``apply_sequence``
+runs all T frames in one call of ``mmse_gain``, a CUDA kernel on a card
+(csrc/mmse.cu; the JAX version is a ``lax.scan`` outside any Pallas kernel,
+so it replaces none) and the loop of ``gain_frame`` on the CPU. The two give
+the same bits, so a stream's output does not depend on how it was cut into
+calls. The state is O(1) per stream, so the engine's masked commit and reset
+apply as they do to the GRU model.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 
+from .. import profiling
 from ..constants import NUM_BINS
+from ..ops.kernels import mmse as kernel
 from .base import Placeholder
 
 DEFAULT_CONFIG = {
@@ -51,45 +58,40 @@ def init_state(batch_shape: Tuple[int, ...], config: Dict[str, Any], device):
     }
 
 
-def step(params, state, re, im, config: Dict[str, Any] = None):
+def gain_rule(config):
+    """The rule's scalars from a config: (dd_beta, noise_alpha, gain_floor,
+    SNR cap), as ``gain_frame`` and ``mmse_gain`` take them."""
     cfg = dict(DEFAULT_CONFIG, **(config or {}))
-    power = re * re + im * im
-    noise = state["noise"]
-    count = state["count"]
+    return cfg["dd_beta"], cfg["noise_alpha"], cfg["gain_floor"], _SNR_CAP
 
-    # fast adaptation over the first frames (the stream head is taken as the
-    # noise reference), then the steady-state smoothing constant
-    boot = torch.clamp(1.0 / (count + 1.0), 1.0 - cfg["noise_alpha"], 1.0)[..., None]
 
-    gamma = torch.clamp(power / torch.clamp(noise, min=1e-10), 0.0, _SNR_CAP)
-    xi = (cfg["dd_beta"] * state["prev_gain2_post"]
-          + (1.0 - cfg["dd_beta"]) * torch.clamp(gamma - 1.0, min=0.0))  # a-priori SNR
-    xi = torch.clamp(xi, 0.0, _SNR_CAP)
-    gain = xi / (1.0 + xi)                                          # Wiener rule
-
-    # the speech-presence probability xi / (1 + xi) gates noise updates; its
-    # complement is computed as 1 / (1 + xi) (1 - presence cancels for large xi)
-    rate = boot / (1.0 + xi)
-    new_noise = torch.clamp(noise + rate * (power - noise), min=1e-10)
-
-    mask = torch.clamp(gain, min=cfg["gain_floor"])
-    new_state = {
-        "noise": new_noise,
-        "prev_gain2_post": torch.clamp(gain * gain * gamma, 0.0, _SNR_CAP),
-        "count": count + 1.0,
-    }
-    return new_state, mask
+def step(params, state, re, im, config: Dict[str, Any] = None):
+    noise, prev, count, mask = kernel.gain_frame(re, im, state["noise"],
+                                                 state["prev_gain2_post"], state["count"],
+                                                 *gain_rule(config))
+    return {"noise": noise, "prev_gain2_post": prev, "count": count}, mask
 
 
 def apply_sequence(params, state, re, im, config: Dict[str, Any] = None):
-    """Spectra [*, T, K] -> (final_state, masks [*, T, K]): a loop over T."""
-    t_axis = re.dim() - 2
-    masks = []
-    for t in range(re.shape[t_axis]):
-        state, mask = step(params, state, re.select(t_axis, t), im.select(t_axis, t), config)
-        masks.append(mask)
-    return state, torch.stack(masks, dim=t_axis)
+    """Spectra [*, T, K] -> (final_state, masks [*, T, K]): the leading shape
+    flattened to N streams and the T frames in one ``mmse_gain`` call. Under a
+    profiler it records the span ``mmse.gain`` (counts ``frames``, ``columns``
+    = N x K, ``kernel``: the kernel's launches in it, 1 on a card, else 0)."""
+    lead, (t_len, k) = tuple(re.shape[:-2]), re.shape[-2:]
+    n = math.prod(lead)
+    with profiling.span("mmse.gain", frames=t_len, columns=n * k) as span:
+        before = kernel.launches
+        noise, prev, count, mask = kernel.mmse_gain(
+            re.reshape(n, t_len, k).contiguous(), im.reshape(n, t_len, k).contiguous(),
+            state["noise"].reshape(n, k).contiguous(),
+            state["prev_gain2_post"].reshape(n, k).contiguous(),
+            state["count"].reshape(n).contiguous(), *gain_rule(config))
+        if span is not None:
+            span.counts["kernel"] = kernel.launches - before
+    new_state = {"noise": noise.reshape(lead + (k,)),
+                 "prev_gain2_post": prev.reshape(lead + (k,)), "count": count.reshape(lead)}
+    return new_state, mask.reshape(re.shape)
 
 
-__all__ = ["DEFAULT_CONFIG", "MMSE", "Params", "init_params", "init_state", "step",
-           "apply_sequence"]
+__all__ = ["DEFAULT_CONFIG", "MMSE", "Params", "init_params", "init_state", "gain_rule",
+           "step", "apply_sequence"]

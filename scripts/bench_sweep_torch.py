@@ -76,7 +76,7 @@ DEFAULT_OUT = os.path.join(REPO, "resources", "reports", "engine_roofline_torch.
 PORT_KERNELS = re.compile(r"\b(front_kernel|encode_kernel|back_kernel|gru_stack_kernel|"
                           r"floor_scan_kernel|grid_barriers_kernel|empty_kernel|"
                           r"rowmm_narrow_kernel|rowmm_row_kernel|rowmm_col_kernel|"
-                          r"rowmm_tile_kernel|rowmm_simple_kernel)\b")
+                          r"rowmm_tile_kernel|rowmm_simple_kernel|mmse_gain_kernel)\b")
 GEMM_KERNELS = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas|Kernel2", re.I)
 # bytes of the element types that torch.profiler names in "Input type"
 TYPE_BYTES = {"float": 4, "c10::BFloat16": 2, "c10::Half": 2, "double": 8, "long int": 8,

@@ -472,9 +472,11 @@ def test_single_stream_enhance_launches_the_kernels(cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_mmse_process_chunk_on_the_card(cuda_device, tmp_path):
-    """The mmse model (no kernel on the TPU either) through ``process_chunk``
-    on the card: >= 35 dB from the port on the CPU, no port kernel launched."""
+    """The mmse model through ``process_chunk`` on the card: >= 35 dB from
+    the port on the CPU; of the port's kernels beside ``rowmm`` only its gain
+    kernel, once."""
     from koala_tpu_torch.models import mmse
+    from koala_tpu_torch.ops.kernels import mmse as mmse_kernel
 
     path = str(tmp_path / "mmse.pv")
     params_io.save_params(path, mmse.init_params(), mmse.DEFAULT_CONFIG)
@@ -482,13 +484,152 @@ def test_mmse_process_chunk_on_the_card(cuda_device, tmp_path):
     pcm = (rng.standard_normal((3, 40 * 256)) * 3000).astype(np.int16)
     kb = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=3, model_path=path, device="gpu")
     counts = (floor.launches, gru.launches, gru.launches_hs, engine_fused.launches)
+    gains = mmse_kernel.launches
     out = kb.process_chunk(pcm)
     assert (floor.launches, gru.launches, gru.launches_hs, engine_fused.launches) == counts
+    assert mmse_kernel.launches == gains + 1
     cpu = koala_tpu_torch.create_batch(ACCESS_KEY, batch_size=3, model_path=path, device="cpu")
     want = cpu.process_chunk(pcm)
     assert out.shape == want.shape == pcm.shape
     for i in range(3):
         assert snr_db(want[i].astype(np.float64), out[i].astype(np.float64)) > 35.0
+
+
+# ---- the mmse gain kernel (csrc/mmse.cu) against its plain version
+
+MMSE_RULE = (0.96, 0.92, 0.03, 1e6)     # models/mmse.py gain_rule(None)
+
+
+def _mmse_case(n, t_len, device, seed=0, lo=1e-6, hi=1e3):
+    """re, im [n, t_len, 257] on ``device``, each (stream, frame) at its own
+    level between ``lo`` and ``hi``, so the SNR clamps at both ends are
+    reached."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    level = torch.exp(torch.empty(n, t_len, 1, device=device).uniform_(
+        float(np.log(lo)), float(np.log(hi)), generator=g))
+    return tuple(torch.randn(n, t_len, 257, device=device, generator=g) * level
+                 for _ in range(2))
+
+
+def _mmse_state(n, device):
+    from koala_tpu_torch.models import mmse
+
+    st = mmse.init_state((n,), mmse.DEFAULT_CONFIG, device)
+    return st["noise"], st["prev_gain2_post"], st["count"]
+
+
+def _assert_same(got, want):
+    names = ("noise", "prev_gain2_post", "count", "mask")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 64, 8192])
+@pytest.mark.parametrize("t_len", [1, 2, 375])
+def test_mmse_gain_kernel_bit_identical(cuda_device, n, t_len):
+    """Masks and every state leaf bit for bit the plain chain's on the card,
+    one launch a call."""
+    from koala_tpu_torch.ops.kernels import mmse as mmse_kernel
+
+    re, im = _mmse_case(n, t_len, cuda_device, seed=n + t_len)
+    args = (re, im) + _mmse_state(n, cuda_device) + MMSE_RULE
+    before = mmse_kernel.launches
+    got = mmse_kernel.mmse_gain(*args)
+    torch.cuda.synchronize()
+    assert mmse_kernel.launches == before + 1
+    _assert_same(got, mmse_kernel.mmse_gain_ref(*args))
+
+
+@pytest.mark.cuda
+def test_mmse_gain_kernel_from_a_state_mid_stream(cuda_device):
+    """A starting state taken mid-stream (count 40, noise adapted, the
+    decision-directed term warm), and state carried over two calls against
+    one call over the joined frames."""
+    from koala_tpu_torch.ops.kernels import mmse as mmse_kernel
+
+    re, im = _mmse_case(64, 140, cuda_device, seed=5)
+    st = mmse_kernel.mmse_gain_ref(re[:, :40], im[:, :40], *_mmse_state(64, cuda_device),
+                                   *MMSE_RULE)[:3]
+    assert float(st[2][0]) == 40.0 and float(st[1].max()) > 0.0
+    one = mmse_kernel.mmse_gain(re[:, 40:].contiguous(), im[:, 40:].contiguous(), *st,
+                                *MMSE_RULE)
+    _assert_same(one, mmse_kernel.mmse_gain_ref(re[:, 40:], im[:, 40:], *st, *MMSE_RULE))
+    first = mmse_kernel.mmse_gain(re[:, 40:97].contiguous(), im[:, 40:97].contiguous(), *st,
+                                  *MMSE_RULE)
+    second = mmse_kernel.mmse_gain(re[:, 97:].contiguous(), im[:, 97:].contiguous(),
+                                   *first[:3], *MMSE_RULE)
+    _assert_same(second[:3] + (torch.cat([first[3], second[3]], dim=1),), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(1e-12, 1e-8), (1e4, 1e8), (1e-12, 1e8)],
+                         ids=["quiet", "loud", "both"])
+def test_mmse_gain_kernel_at_the_clamps(cuda_device, lo, hi):
+    """Inputs so quiet that the noise floor of 1e-10 holds, and so loud (or
+    jumping from one to the other) that the SNR cap of 1e6 does: still bit
+    for bit."""
+    from koala_tpu_torch.ops.kernels import mmse as mmse_kernel
+
+    re, im = _mmse_case(64, 200, cuda_device, seed=9, lo=lo, hi=hi)
+    args = (re, im) + _mmse_state(64, cuda_device) + MMSE_RULE
+    got = mmse_kernel.mmse_gain(*args)
+    want = mmse_kernel.mmse_gain_ref(*args)
+    _assert_same(got, want)
+    if hi < 1e-6:          # the noise PSD sits on its floor
+        assert float(got[0].min()) == float(np.float32(1e-10))
+    if hi > 1e7:           # the first frame's SNR over the initial noise 1e-8 passes the cap
+        assert bool(((re[:, 0] * re[:, 0] + im[:, 0] * im[:, 0]) / 1e-8 > 1e6).any())
+
+
+@pytest.mark.cuda
+def test_mmse_gain_kernel_off_the_ordinary_range(cuda_device):
+    """Frames with extreme operands (powers near 1e-36, digital silence, a
+    count of 2^60, an infinity, a NaN), beside ordinary ones in the same
+    warps: the kernel gives the plain chain's values (NaN where it has NaN)."""
+    from koala_tpu_torch.ops.kernels import mmse as mmse_kernel
+
+    re, im = _mmse_case(64, 120, cuda_device, seed=13)
+    re[0::5, 10:30] *= 1e-18                         # powers near 1e-36
+    re[1::5, 40:60], im[1::5, 40:60] = 0.0, 0.0      # silence
+    re[2::7, 70, 3::11] = float("inf")
+    im[3::7, 90, 5::13] = float("nan")
+    noise, prev, count = _mmse_state(64, cuda_device)
+    count[4::8] = 2.0 ** 60
+    args = (re, im, noise, prev, count) + MMSE_RULE
+    got = mmse_kernel.mmse_gain(*args)
+    want = mmse_kernel.mmse_gain_ref(*args)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(got[3]).any()) and bool(torch.isfinite(got[3][0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", [(), (5,)], ids=["T_K", "B_T_K"])
+def test_mmse_apply_sequence_launches_the_kernel_once(cuda_device, lead):
+    """``apply_sequence`` on [T, K] (``Koala.enhance``) and [B, T, K] (the
+    batch paths): one launch a call, the masks and state the plain chain's on
+    the flattened streams."""
+    from koala_tpu_torch.models import mmse
+    from koala_tpu_torch.ops.kernels import mmse as mmse_kernel
+
+    n = int(np.prod(lead, dtype=np.int64))
+    re, im = _mmse_case(n, 90, cuda_device, seed=3)
+    re, im = re.reshape(lead + (90, 257)), im.reshape(lead + (90, 257))
+    state = mmse.init_state(lead, mmse.DEFAULT_CONFIG, cuda_device)
+    before = mmse_kernel.launches
+    st, mask = mmse.apply_sequence(None, state, re, im, mmse.DEFAULT_CONFIG)
+    st, mask2 = mmse.apply_sequence(None, st, re, im, mmse.DEFAULT_CONFIG)
+    torch.cuda.synchronize()
+    assert mmse_kernel.launches == before + 2
+    want = mmse_kernel.mmse_gain_ref(re.reshape(n, 90, 257), im.reshape(n, 90, 257),
+                                     *_mmse_state(n, cuda_device), *MMSE_RULE)
+    assert mask.shape == re.shape and torch.equal(mask.reshape(n, 90, 257), want[3])
+    want = mmse_kernel.mmse_gain_ref(re.reshape(n, 90, 257), im.reshape(n, 90, 257),
+                                     *want[:3], *MMSE_RULE)
+    assert torch.equal(mask2.reshape(n, 90, 257), want[3])
+    for key, w in zip(("noise", "prev_gain2_post", "count"), want[:3]):
+        assert st[key].shape == state[key].shape and torch.equal(st[key].reshape(w.shape), w)
 
 
 @pytest.mark.cuda

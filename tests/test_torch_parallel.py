@@ -97,7 +97,8 @@ def test_corpus_runner_records_its_spans(mmse_model, rng):
     ``runner.upload`` (its bytes, all pageable from a numpy batch, none
     staged through the page-locked ring on the CPU) and
     ``runner.launch``, which holds ``engine.sequence`` and, in it,
-    ``engine.model``; every span carries the batch's number."""
+    ``engine.model`` and the mmse model's ``mmse.gain``; every span carries
+    the batch's number."""
     import time
 
     from koala_tpu_torch import profiling
@@ -112,10 +113,10 @@ def test_corpus_runner_records_its_spans(mmse_model, rng):
         runner.enhance_batch(pcm)
     spans = {s.name: s for s in profiling.spans(t0, time.time_ns())}
     assert set(spans) == {"runner.issue", "runner.upload", "runner.launch",
-                          "engine.sequence", "engine.model"}
+                          "engine.sequence", "engine.model", "mmse.gain"}
     for inner, outer in (("runner.upload", "runner.issue"), ("runner.launch", "runner.issue"),
                          ("engine.sequence", "runner.launch"),
-                         ("engine.model", "engine.sequence")):
+                         ("engine.model", "engine.sequence"), ("mmse.gain", "engine.model")):
         s, o = spans[inner], spans[outer]
         assert s.parent == outer and o.start_ns <= s.start_ns <= s.end_ns <= o.end_ns
     assert spans["runner.upload"].end_ns <= spans["runner.launch"].start_ns
@@ -124,6 +125,7 @@ def test_corpus_runner_records_its_spans(mmse_model, rng):
                                              "staged_bytes": 0, "ring_waits": 0}
     assert spans["engine.sequence"].counts == {"hops": t}
     assert spans["engine.model"].counts == {"frames": t}
+    assert spans["mmse.gain"].counts == {"frames": t, "columns": b * 257, "kernel": 0}
     assert {s.batch for s in spans.values()} == {2} and runner.batch_number == 2
 
 
