@@ -167,8 +167,9 @@
    byte-identical runs, every WAV 93680 samples.
 12. FullSubNet (``models/fullsubnet/fullsubnet_random.pv``) and its LSTM-cell kernel
    (``csrc/lstm.cu``): the kernel against its plain version at each of the
-   model's four widths at 1, 64, 127, 128, 129, 257 and the benchmark's rows
-   (2048 for the full band, 526,336 for the sub-band) and 29 fewer, a row's
+   model's four widths and at Demucs's (kx = H = 1024, depth 2048 in
+   K-panels) at 1, 64, 127, 128, 129, 257 and the benchmark's rows
+   (2048 for the full band and Demucs, 526,336 for the sub-band) and 29 fewer, a row's
    bits the same at every row count, and each width's launch plan and time
    beside its bound, its plain version's and the library's (a ``lstm ...``
    line each); one stream's ``Koala.process``
@@ -185,12 +186,19 @@
    the counts reset before it): one gain launch a batch, ``rowmm``, no other
    kernel and no plain version, bit for bit the batch with the plain version
    in the kernel's place (a ``mmse_gain corpus runner`` line).
+12c. Demucs (``models/demucs.py``) at dns64's widths, its weights drawn from
+   the benchmark configuration's seed: ``CorpusRunner.enhance_batch`` at the
+   cell's 2048 x 375 hops (the counts reset just before it): 750 LSTM
+   launches (two a hop), ``rowmm``, no other kernel and no plain version;
+   two streams' ``Koala.process`` bit for bit their rows (a ``demucs corpus
+   runner`` line).
 13. Prints one ``{"kernels": [...]}`` line (seven entries: each kernel's
    launches by path and in all; ``rowmm``'s times are the sum over the nine
    products at 376 x 64 rows, beside ``rowmm_simple``'s and
    ``torch.matmul``'s, with the same at 64 rows and one, and
    ``bits_equal_simple``; ``lstm_cell``'s the sum over a frame's four
-   layer-steps at B = 2048; ``mmse_gain``'s at [8192, 375, 257]), the
+   layer-steps at B = 2048, with Demucs's hop of two beside it and its
+   launches on the Demucs paths; ``mmse_gain``'s at [8192, 375, 257]), the
    card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -1082,7 +1090,8 @@ def pull_all(srv, n_streams, frames, deadline_s=120.0):
 class PlainCalls:
     """Counts the calls of the kernels' plain versions (the floor's, the
     GRU's with the scan branch's step, the fused entry's, the fixed-order
-    product's, the mmse gain recurrence's) and of ``torch.matmul`` (the
+    product's, the mmse gain recurrence's, the LSTM cell's) and of
+    ``torch.matmul`` (the
     products' route where autograd records a graph) while installed."""
 
     NAMES = (("koala_tpu_torch.models.mask_gru", "floor_scan_ref"),
@@ -1092,6 +1101,7 @@ class PlainCalls:
              ("koala_tpu_torch.ops.kernels.engine_fused", "fused_sequence_ref"),
              ("koala_tpu_torch.ops.kernels.rowmm", "rowmm_ref"),
              ("koala_tpu_torch.ops.kernels.mmse", "mmse_gain_ref"),
+             ("koala_tpu_torch.ops.kernels.lstm", "lstm_cell_ref"),
              ("torch", "matmul"))
 
     def __enter__(self):
@@ -3017,9 +3027,10 @@ MMSE_RUNNER_BATCHES = 2
 
 # FullSubNet's phase: the LSTM kernel's widths (kx, H) and the rows it takes at
 # the benchmark's batch of 2048 streams (the full band a row a stream, the
-# sub-band 257)
+# sub-band 257), and Demucs's layer-step (a row a stream, depth 2048: K-panels)
 LSTM_SHAPES = (("fullband", 257, 512, 2048), ("fullband", 512, 512, 2048),
-               ("subband", 32, 384, 2048 * 257), ("subband", 384, 384, 2048 * 257))
+               ("subband", 32, 384, 2048 * 257), ("subband", 384, 384, 2048 * 257),
+               ("demucs", 1024, 1024, 2048))
 LSTM_ATOL = 2e-5               # h' and c' against the plain version (sums in another order)
 FSN_B = 64                     # the corpus runner's batch that one stream's process is held to
 
@@ -3048,10 +3059,12 @@ def lstm_case(lstm, kx, h, rows, dev):
 def fullsubnet_phase(kt, dev, card):
     """Phase 12: FullSubNet (models/fullsubnet.py) and its LSTM-cell kernel
     (csrc/lstm.cu). The kernel against its plain version at each of the
-    model's four widths, at 1, 64, 127, 128, 129, 257 and the benchmark's
-    rows (2048 full-band, 526,336 sub-band) and 29 fewer, a row's bits the
-    same at every row count, and each width's plan and time beside its bound, the plain version's and the library's
-    (cuBLAS bf16 products and torch's elementwise gates); one stream's
+    model's four widths and at Demucs's (kx = H = 1024, in K-panels), at 1,
+    64, 127, 128, 129, 257 and the benchmark's rows (2048 full-band and
+    Demucs, 526,336 sub-band) and 29 fewer, a row's bits the same at every
+    row count, and each width's plan and time beside its bound, the plain
+    version's and the library's (cuBLAS bf16 products and torch's
+    elementwise gates); one stream's
     ``Koala.process`` bit for bit its row of ``CorpusRunner.enhance_batch``
     at B = 64; the ``StreamingServer`` (full-chunk and single-frame rounds)
     bit for bit ``Koala.process``; ``mask_gru`` and ``mmse`` with their masks
@@ -3197,18 +3210,93 @@ def fullsubnet_phase(kt, dev, card):
             fail("%s: a complex mask (mask, 0) changes the output" % kind)
     print("fullsubnet: mask_gru and mmse with their masks as (mask, 0) bit for bit as real "
           "masks on %s" % card)
-    frame = {k: sum(r[k] for r in rows_out) for k in ("ms", "plain_ms", "library_ms",
-                                                      "bound_ms")}
+    times = ("ms", "plain_ms", "library_ms", "bound_ms")
+    frame = {k: sum(r[k] for r in rows_out if r["band"] != "demucs") for k in times}
+    hop = {k: 2 * r[k] for r in rows_out if r["band"] == "demucs" for k in times}
     entry = {"name": "lstm_cell", "route": "cuda", "source": "koala_tpu_torch/csrc/lstm.cu",
              "replaces": None, "launches": lstm.launches, "max_abs_err": worst,
              "launches_by_path": {"corpus_runner": runner_launches,
                                   "Koala.process": process_launches},
              **frame, "bound_by": "the four layer-steps of a frame at B = 2048, each at its own",
-             "shape": [2048, 257], "widths": rows_out}
+             "shape": [2048, 257], "widths": rows_out, "demucs_hop_at_b2048": hop}
     print(json.dumps({"fullsubnet": {"lstm": rows_out, "frame_at_b2048": frame,
+                                     "demucs_hop_at_b2048": hop,
                                      "process_equals_runner": True, "server_equals_process": True,
                                      "complex_mask_zero_imag_equal": True}}))
     return entry
+
+
+# Demucs's phase: the cell's batch (blocks of ``block_hops`` = 8 hops), the
+# streams whose Koala.process is held to their rows
+DEMUCS_B = 2048
+DEMUCS_PROCESS_STREAMS = 2
+
+
+def demucs_phase(kt, card, reset_counts, counts):
+    """Phase 12c: Demucs (models/demucs.py) at dns64's widths, its weights
+    drawn from ``benchmark/configs/demucs-dns64.json``'s seed, on the
+    benchmark cell's path: one ``CorpusRunner.enhance_batch`` of DEMUCS_B x
+    375 hops after a warm-up, the counts reset just before it: two LSTM
+    launches a hop, ``rowmm``, no other counted kernel and no plain version;
+    then two streams' ``Koala.process``, hop by hop, bit for bit their rows
+    of that batch (a ``demucs corpus runner`` line). Returns the LSTM
+    launches by path."""
+    from koala_tpu_torch.models import params_io
+    from koala_tpu_torch.models.base import Placeholder
+    from koala_tpu_torch.ops.kernels import lstm
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "benchmark", "configs", "demucs-dns64.json")) as f:
+        cfg = json.load(f)["model"]
+    pcm = mix_streams(375 * 256)
+    pcm = np.tile(pcm, (-(-DEMUCS_B // len(pcm)), 1))[:DEMUCS_B]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dns64.pv")
+        params_io.save_params(path, Placeholder(), cfg)
+        runner = CorpusRunner(path, global_batch=DEMUCS_B, utterance_samples=375 * 256,
+                              mesh=make_mesh(["gpu:0"]))
+        batch = pcm.astype(np.float32) / 32768.0
+        runner.enhance_batch(batch)                 # warm-up (lazy set-up)
+        torch.cuda.synchronize()
+        reset_counts()
+        before = lstm.launches
+        t0 = time.perf_counter()
+        with PlainCalls() as plain:
+            out = runner.enhance_batch(batch)
+            torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        launched = counts()
+        runner_launches = lstm.launches - before
+        rows = np.clip(np.round(out[:DEMUCS_PROCESS_STREAMS].reshape(DEMUCS_PROCESS_STREAMS, -1)
+                                .cpu().numpy().astype(np.float64) * 32768.0),
+                       -32768, 32767).astype(np.int16)
+        del runner, out
+        before = lstm.launches
+        for s in range(DEMUCS_PROCESS_STREAMS):
+            k = kt.create(ACCESS_KEY, model_path=path, device="gpu")
+            try:
+                if k.delay_sample != 768:
+                    fail("demucs: Koala.delay_sample is %d, not 768" % k.delay_sample)
+                got = np.concatenate([k.process(pcm[s, i:i + 256])
+                                      for i in range(0, pcm.shape[1], 256)])
+            finally:
+                k.delete()
+            if not np.array_equal(got, rows[s]):
+                fail("demucs: stream %d's Koala.process is %d LSB from its row of the corpus "
+                     "runner" % (s, int(np.abs(got.astype(np.int32) - rows[s]).max())))
+        process_launches = lstm.launches - before
+    print("demucs corpus runner: %d x 375 hops in %.3f s, launches %s and %d LSTM, %d plain "
+          "calls; Koala.process (%d streams, %d LSTM launches) bit for bit their rows on %s"
+          % (DEMUCS_B, batch_s, launched, runner_launches, plain.calls, DEMUCS_PROCESS_STREAMS,
+             process_launches, card), flush=True)
+    if runner_launches != 2 * 375 or not only_rowmm(launched) or plain.calls:
+        fail("demucs: the corpus runner's batch should launch the LSTM kernel twice a hop "
+             "(750), rowmm, no other kernel and no plain version: %d LSTM, %s, %d plain calls"
+             % (runner_launches, launched, plain.calls))
+    if process_launches != DEMUCS_PROCESS_STREAMS * 2 * 375:
+        fail("demucs: Koala.process made %d LSTM launches, not two a hop" % process_launches)
+    return {"demucs_corpus_runner": runner_launches, "demucs_Koala.process": process_launches}
 
 
 def main() -> None:
@@ -3645,6 +3733,13 @@ def main() -> None:
                                           cuts=cuts_counts["mmse_gain"])
     mmse_entry["launches"] = sum(mmse_entry["launches_by_path"].values())
 
+    # ---- 12c. Demucs on the cell's path, its LSTM at depth 2048
+    s = time.perf_counter()
+    lstm_entry["launches_by_path"].update(demucs_phase(kt, card, reset_counts, counts))
+    phase_s["demucs"] = time.perf_counter() - s
+    from koala_tpu_torch.ops.kernels import lstm
+    lstm_entry["launches"] = lstm.launches
+
     # every kernel's launches, by the path that made them
     by_path = {
         "floor_scan": {"process_chunk": launches["floor_scan"],
@@ -3721,10 +3816,11 @@ def main() -> None:
     print("chip_smoke: %.1f s from the build on, of which one stream's enhance %.1f s, "
           "acceptance %.1f s, surface %.1f s, cuts %.1f s, bench %.1f s, bench_sweep %.1f s, "
           "pod_wash %.1f s, gate %.1f s, demo %.1f s, generators %.1f s, fullsubnet %.1f s, "
-          "mmse_gain %.1f s"
+          "mmse_gain %.1f s, demucs %.1f s"
           % (time.perf_counter() - t0, single_s, accept_s, surface_s, cuts_s, phase_s["bench"],
              phase_s["bench_sweep"], phase_s["pod_wash"], phase_s["gate"], phase_s["demo"],
-             phase_s["generators"], phase_s["fullsubnet"], phase_s["mmse_gain"]))
+             phase_s["generators"], phase_s["fullsubnet"], phase_s["mmse_gain"],
+             phase_s["demucs"]))
 
     kernels += [lstm_entry, mmse_entry]
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,7 @@ SAMPLE_RATE = 16000
 FRAME_LENGTH = 256          # samples per process() call (= STFT hop)
 FFT_SIZE = 512              # analysis window length (2 hops, 50% overlap)
 NUM_BINS = FFT_SIZE // 2 + 1  # 257 rfft bins
-DELAY_SAMPLE = FRAME_LENGTH   # algorithmic latency of the 50%-overlap OLA
+DELAY_SAMPLE = FRAME_LENGTH   # the spectral kinds' latency (50%-overlap OLA); Engine.delay_sample
 
 PCM_SCALE = 32768.0         # int16 <-> float fullscale convention
 

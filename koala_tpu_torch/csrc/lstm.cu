@@ -4,7 +4,8 @@
 //
 // It replaces no TPU kernel: the JAX package has no LSTM. It serves both
 // recurrences of FullSubNet (models/fullsubnet.py): the sub-band LSTM on
-// B x 257 rows (hidden 384) and the full-band LSTM on B rows (hidden 512).
+// B x 257 rows (hidden 384) and the full-band LSTM on B rows (hidden 512);
+// and Demucs's LSTM (models/demucs.py) on B rows at kx = H = 1024.
 // Numerics: x and h rounded to bf16 as they enter the product, W bf16, f32
 // sums (tensor cores), f32 bias, gates, c and h; the gate functions from the
 // fast exponential and division (resident.cuh: about 1e-7 from the exact).
@@ -45,7 +46,20 @@
 //    where the A tile and a ring of at least four stages fit in the 227 KB a
 //    block may hold: K = 416 (A 112 KB, 12 stages) and 768 (A 192 KB, 4
 //    stages). 64 rows (one warpgroup) where they do not: K = 784 and 1024,
-//    the full band, whose 2048 rows are 1% of a frame's work. A row's sums
+//    the full band, whose 2048 rows are 1% of a frame's work.
+//  - K-panels where even 64 rows of the whole depth do not fit: Demucs's
+//    LSTM (models/demucs.py), K = 1024 + 1024, whose 64-row A tile would be
+//    256 KB. The tile then holds a segment of the depth (seg_chunks stages'
+//    worth, 1024 deep at K = 2048: 128 KB and a ring of 12 stages), and each
+//    pass walks the depth segment by segment, reloading a segment's rows
+//    from L2 (16 chunks of 8 floats in flight a thread) with the sums held
+//    in registers; an odd pass walks the segments last first, so it starts
+//    on the one the pass before ended on (chunk_at): one reload a pass
+//    instead of two at K = 2048. The order of the sums is then the pass's
+//    own, never the row count's. At Demucs's 2048 rows on an H100 80GB HBM3
+//    (700 W) the reloads are most of the step's time: 0.28 ms without them,
+//    0.77 with every segment reloaded each pass, 0.60 with the odd passes
+//    reversed; the rest is the ring's delivery of W. A row's sums
 //    run over k in 16-deep steps in one order, at any place in any tile, so
 //    its bits depend only on its own inputs and the width: a stream's output
 //    does not depend on its batch. The split of passes over clusters (plan)
@@ -97,6 +111,7 @@ struct LstmArgs {
   long long ldx, ldh, ldc, ldho, ldco;
   int M, kx, kxp, H;
   int passes_per_block, groups, items, stages;
+  int seg_chunks;       // W stages' depth of the A tile: >= chunks holds the whole depth
 };
 
 size_t a_bytes(int rows, int K) { return (size_t)((K + PANEL_K - 1) / PANEL_K) * rows * 128; }
@@ -244,8 +259,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// A float of the rows: read once (.cs, streaming), or kept in L2 for the
+// next pass's reload (.cg) in K-panels.
+template <bool ONCE>
+__device__ __forceinline__ float4 ld_row4(const float4* p) {
+  return ONCE ? __ldcs(p) : __ldcg(p);
+}
+template <bool ONCE>
+__device__ __forceinline__ float ld_row(const float* p) {
+  return ONCE ? __ldcs(p) : __ldcg(p);
+}
+
 // Columns k0 .. k0 + 7 of row m of [x | 0 | h] as bf16. k0 is a multiple of
 // 8, so the eight lie in x and its padding or in h, never in both.
+template <bool ONCE>
 __device__ __forceinline__ uint4 a_chunk(const LstmArgs& a, long long m, int k0, bool vx,
                                          bool vh) {
   const bool in_h = k0 >= a.kxp;
@@ -253,14 +280,14 @@ __device__ __forceinline__ uint4 a_chunk(const LstmArgs& a, long long m, int k0,
   float4 p = make_float4(0.f, 0.f, 0.f, 0.f), q = p;
   if (in_h ? vh : vx) {
     if (in_h || k0 < a.kx) {
-      p = __ldcs(reinterpret_cast<const float4*>(src));
-      q = __ldcs(reinterpret_cast<const float4*>(src) + 1);
+      p = ld_row4<ONCE>(reinterpret_cast<const float4*>(src));
+      q = ld_row4<ONCE>(reinterpret_cast<const float4*>(src) + 1);
     }
   } else {
     const int n = in_h ? 8 : a.kx - k0;   // columns of the eight that exist
     float f[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] = j < n ? __ldcs(src + j) : 0.0f;
+    for (int j = 0; j < 8; ++j) f[j] = j < n ? ld_row<ONCE>(src + j) : 0.0f;
     p = make_float4(f[0], f[1], f[2], f[3]);
     q = make_float4(f[4], f[5], f[6], f[7]);
   }
@@ -268,18 +295,20 @@ __device__ __forceinline__ uint4 a_chunk(const LstmArgs& a, long long m, int k0,
                     pack_bf16(q.z, q.w));
 }
 
-// Rows m0 .. m0 + 63 of [x | 0 | h] into a warpgroup's 64 rows of the A
-// panels as bf16: element (r, k) in panel k / 64, row r, 16-byte chunk
-// (k % 64) / 8 XOR r % 8 (the 128-byte swizzle). Rows past M, and columns
-// from K to `depth` (K rounded up to a stage), are zeros. t: the thread's
-// index in its warpgroup. Four chunks (of 8 floats) a thread are loaded
-// before any is stored, so 32 KB are in flight a block.
+// Rows m0 .. m0 + 63 of columns k_lo .. k_lo + depth - 1 of [x | 0 | h]
+// into a warpgroup's 64 rows of the A panels as bf16: element (r, k_lo + k)
+// in panel k / 64, row r, 16-byte chunk (k % 64) / 8 XOR r % 8 (the 128-byte
+// swizzle; k_lo is a multiple of 64). Rows past M, and columns from K on
+// (K rounded up to a stage), are zeros. t: the thread's index in its
+// warpgroup. U chunks (of 8 floats) a thread are loaded before any is
+// stored: 4 for a tile loaded once (32 KB in flight a block of two
+// warpgroups), 16 for K-panels, reloaded every pass (64 KB in flight).
+template <int U, bool ONCE>
 __device__ __forceinline__ void load_a(unsigned char* a_wg, int panel_bytes, const LstmArgs& a,
-                                       long long m0, int depth, int t) {
+                                       long long m0, int k_lo, int depth, int t) {
   const int K = a.kxp + a.H, q = depth / 8, n = WG_ROWS * q;
   const bool vx = ((reinterpret_cast<size_t>(a.x) & 15) == 0) && a.ldx % 4 == 0 && a.kx % 8 == 0;
   const bool vh = ((reinterpret_cast<size_t>(a.h) & 15) == 0) && a.ldh % 4 == 0;
-  constexpr int U = 4;
   for (int i0 = t; i0 < n; i0 += 128 * U) {
     uint4 v[U];
 #pragma unroll
@@ -287,8 +316,8 @@ __device__ __forceinline__ void load_a(unsigned char* a_wg, int panel_bytes, con
       const int i = i0 + u * 128;
       v[u] = make_uint4(0u, 0u, 0u, 0u);
       if (i < n) {
-        const int r = i / q, k0 = (i - r * q) * 8;
-        if (m0 + r < a.M && k0 < K) v[u] = a_chunk(a, m0 + r, k0, vx, vh);
+        const int r = i / q, k0 = k_lo + (i - r * q) * 8;
+        if (m0 + r < a.M && k0 < K) v[u] = a_chunk<ONCE>(a, m0 + r, k0, vx, vh);
       }
     }
 #pragma unroll
@@ -304,8 +333,26 @@ __device__ __forceinline__ void load_a(unsigned char* a_wg, int panel_bytes, con
   }
 }
 
+// The chunk of W (and of the depth) that step cc of pass p takes. In
+// K-panels an odd pass walks the segments last first (each segment's chunks
+// in ascending order), so that it starts on the segment the even pass before
+// it ended on and the tile holds it already: half the reloads. The order is
+// the pass's (its hidden units') alone, never the plan's: a row's bits do not
+// depend on the row count. Without K-panels, cc itself.
+template <bool SEG>
+__device__ __forceinline__ int chunk_at(int cc, int p, int seg_chunks, int chunks) {
+  if (!SEG || !(p & 1)) return cc;
+  const int nseg = (chunks + seg_chunks - 1) / seg_chunks;
+  const int last = chunks - (nseg - 1) * seg_chunks;   // chunks of the last segment
+  if (cc < last) return (nseg - 1) * seg_chunks + cc;
+  const int r = cc - last;
+  return (nseg - 2 - r / seg_chunks) * seg_chunks + r % seg_chunks;
+}
+
 // One layer-step. Threads: WGS consumer warpgroups, then one producer warp.
-template <int WGS>
+// SEG: the A tile in K-panels (seg_chunks stages deep), reloaded each pass;
+// else the whole depth, loaded once a tile.
+template <int WGS, bool SEG>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WGS * 128 + 32, 1)
     lstm_cell_kernel(const __grid_constant__ CUtensorMap w_map, const LstmArgs a) {
   constexpr int ROWS = WGS * WG_ROWS;
@@ -313,8 +360,11 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WGS * 128 + 32
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int H = a.H, K = a.kxp + H;
   const int panel_bytes = ROWS * 128;
+  const int passes = (H + UNITS - 1) / UNITS, chunks = (K + STAGE_K - 1) / STAGE_K;
+  // the A tile holds the whole depth, or seg_chunks stages' worth of it at a time
+  const int tile_k = SEG ? a.seg_chunks * STAGE_K : K;
   unsigned char* a_s = smem;
-  unsigned char* ring = smem + (size_t)((K + PANEL_K - 1) / PANEL_K) * panel_bytes;
+  unsigned char* ring = smem + (size_t)((tile_k + PANEL_K - 1) / PANEL_K) * panel_bytes;
   const int stages = a.stages;
   const uint32_t full0 = smem_u32(ring + (size_t)stages * STAGE_BYTES);
   const uint32_t empty0 = full0 + 8 * stages;
@@ -333,8 +383,6 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WGS * 128 + 32
   }
   cluster_sync();
 
-  const int passes = (H + UNITS - 1) / UNITS, chunks = (K + STAGE_K - 1) / STAGE_K;
-
   if (warp == 4 * WGS) {
     // the producer: its half of each of W's stages, in the order the
     // consumers take them, into both blocks
@@ -347,7 +395,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WGS * 128 + 32
         const int p0 = (item % a.groups) * a.passes_per_block;
         const int p1 = min(passes, p0 + a.passes_per_block);
         for (int p = p0; p < p1; ++p)
-          for (int c = 0; c < chunks; ++c) {
+          for (int cc = 0; cc < chunks; ++cc) {
+            const int c = chunk_at<SEG>(cc, p, a.seg_chunks, chunks);
             mbar_wait(empty0 + 8 * stage, phase ^ 1);
             mbar_expect_tx(full0 + 8 * stage, STAGE_BYTES);   // both halves
             tma_load_multicast(smem_u32(ring + (size_t)stage * STAGE_BYTES + rank * SLICE_N * 64),
@@ -374,10 +423,13 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WGS * 128 + 32
       const long long m0 = ((long long)(item / a.groups) * CLUSTER + rank) * ROWS + wg * WG_ROWS;
       const int p0 = (item % a.groups) * a.passes_per_block;
       const int p1 = min(passes, p0 + a.passes_per_block);
-      named_barrier(1 + wg, 128);   // every warp is done with the last tile's A
-      load_a(a_wg, panel_bytes, a, m0, chunks * STAGE_K, t);
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");   // visible to wgmma
-      named_barrier(1 + wg, 128);
+      int seg_held = -1;   // the segment of the depth the tile holds (K-panels)
+      if (!SEG) {
+        named_barrier(1 + wg, 128);   // every warp is done with the last tile's A
+        load_a<4, true>(a_wg, panel_bytes, a, m0, 0, chunks * STAGE_K, t);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");   // visible to wgmma
+        named_barrier(1 + wg, 128);
+      }
 
       // this thread's rows (ma, ma + 8) and first unit in each 8-unit group
       const long long ma = m0 + (warp & 3) * 16 + (lane >> 2), mb = ma + 8;
@@ -406,18 +458,33 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WGS * 128 + 32
 #pragma unroll
         for (int i = 0; i < 64; ++i) d[i] = 0.0f;
         int prev = 0;
-        for (int c = 0; c < chunks; ++c) {
+        for (int cc = 0; cc < chunks; ++cc) {
+          const int c = chunk_at<SEG>(cc, p, a.seg_chunks, chunks);
+          const int cl = SEG ? c % a.seg_chunks : c;   // the chunk's place in the tile
+          if (SEG && cl == 0 && c / a.seg_chunks != seg_held) {
+            // the next segment of the depth: every product reading the tile is done
+            if (cc > 0) {
+              wgmma_wait<0>();
+              fence_acc(d);
+            }
+            named_barrier(1 + wg, 128);
+            load_a<16, false>(a_wg, panel_bytes, a, m0, c * STAGE_K,
+                              min(a.seg_chunks, chunks - c) * STAGE_K, t);
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            named_barrier(1 + wg, 128);
+            seg_held = c / a.seg_chunks;
+          }
           mbar_wait(full0 + 8 * stage, phase);
           const uint32_t b_addr = ring_addr + stage * STAGE_BYTES;
           // the chunk's two 16-deep steps (past K, A and W hold zeros)
-          const uint32_t a_k = a_addr + (c >> 1) * panel_bytes + (c & 1) * 64;
+          const uint32_t a_k = a_addr + (cl >> 1) * panel_bytes + (cl & 1) * 64;
           fence_acc(d);
           wgmma_fence();
-          wgmma_m64n128k16(d, smem_desc(a_k, 1024, 1), smem_desc(b_addr, 512, 2), c > 0);
+          wgmma_m64n128k16(d, smem_desc(a_k, 1024, 1), smem_desc(b_addr, 512, 2), cc > 0);
           wgmma_m64n128k16(d, smem_desc(a_k + 32, 1024, 1), smem_desc(b_addr + 32, 512, 2), 1);
           wgmma_commit();
           fence_acc(d);
-          if (c > 0) {
+          if (cc > 0) {
             wgmma_wait<1>();   // the last chunk's products are done: its stage goes back
             fence_acc(d);
             if (lane < CLUSTER) mbar_arrive_cluster(empty0 + 8 * prev, lane);
@@ -485,28 +552,28 @@ EncodeTiled encode_tiled() {
 
 // A persistent grid: as many clusters as are resident at once (read once a
 // device, at the largest shared memory asked so far), at most one an item.
-template <int WGS>
+template <int WGS, bool SEG>
 cudaError_t launch(const CUtensorMap& map, const LstmArgs& a, size_t smem, int dev,
                    cudaStream_t stream) {
   static size_t set_to[64] = {};
   static int resident[64] = {};
   if (smem > set_to[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_cell_kernel<WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        lstm_cell_kernel<WGS, SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(CLUSTER * 64);
     cfg.blockDim = dim3(WGS * 128 + 32);
     cfg.dynamicSmemBytes = smem;
     int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, lstm_cell_kernel<WGS>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, lstm_cell_kernel<WGS, SEG>, &cfg);
     if (err != cudaSuccess) return err;
     if (n < 1) return cudaErrorInvalidConfiguration;
     resident[dev] = n;
     set_to[dev] = smem;
   }
   const int grid = CLUSTER * (a.items < resident[dev] ? a.items : resident[dev]);
-  lstm_cell_kernel<WGS><<<grid, WGS * 128 + 32, smem, stream>>>(map, a);
+  lstm_cell_kernel<WGS, SEG><<<grid, WGS * 128 + 32, smem, stream>>>(map, a);
   return cudaGetLastError();
 }
 
@@ -518,26 +585,32 @@ using koala::LstmArgs;
 // One layer-step over M rows in tiles of `rows` (64 or 128, from the width
 // alone), each tile's passes in `groups` groups of `passes_per_block`: a
 // persistent grid of clusters of two blocks walks the (pair of tiles, group)
-// items.
+// items. tile_k: the depth the A tile holds, a multiple of 64; the whole
+// depth (K rounded up to 32) or more takes the undivided tile.
 // w: [4H, kxp + H] bf16 in pass order (16-byte aligned rows).
 extern "C" int koala_lstm_cell(const void* x, const void* h, const void* c, void* h_out,
                                void* c_out, const void* w, const void* bias, long long ldx,
                                long long ldh, long long ldc, long long ldho, long long ldco, int M,
                                int kx, int kxp, int H, int rows, int passes_per_block, int groups,
-                               void* stream) {
+                               int tile_k, void* stream) {
   const int passes = (H + koala::UNITS - 1) / koala::UNITS;
   if (M < 1 || kx < 1 || kxp < kx || kxp % 16 || H < 16 || H % 16 || passes_per_block < 1 ||
       groups < 1 || (long long)passes_per_block * groups < passes ||
-      (rows != 64 && rows != 128) || (reinterpret_cast<size_t>(w) & 15))
+      (rows != 64 && rows != 128) || (reinterpret_cast<size_t>(w) & 15) || tile_k < 64 ||
+      tile_k % 64)
     return (int)cudaErrorInvalidValue;
   const int K = kxp + H;
-  const int stages = koala::ring_stages(rows, K);
+  const int chunks = (K + koala::STAGE_K - 1) / koala::STAGE_K;
+  const int seg_chunks = tile_k / koala::STAGE_K;
+  const int held = seg_chunks >= chunks ? K : tile_k;
+  if (held < K && rows != 64) return (int)cudaErrorInvalidValue;   // K-panels: 64-row tiles
+  const int stages = koala::ring_stages(rows, held);
   if (stages < (rows == 128 ? koala::MIN_STAGES_128 : 2)) return (int)cudaErrorInvalidValue;
   // items: (pair of row tiles, group of passes), a cluster's work at a time
   const long long tiles = (M + rows - 1) / rows;
   const long long items = (tiles + koala::CLUSTER - 1) / koala::CLUSTER * groups;
   if (items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  const size_t smem = koala::SMEM_SLACK + koala::a_bytes(rows, K) +
+  const size_t smem = koala::SMEM_SLACK + koala::a_bytes(rows, held) +
                       (size_t)stages * koala::STAGE_BYTES;
 
   int dev = 0;
@@ -560,7 +633,9 @@ extern "C" int koala_lstm_cell(const void* x, const void* h, const void* c, void
   LstmArgs a{static_cast<const float*>(x), static_cast<const float*>(h),
              static_cast<const float*>(c), static_cast<float*>(h_out),
              static_cast<float*>(c_out), static_cast<const float*>(bias), ldx, ldh, ldc, ldho,
-             ldco, M, kx, kxp, H, passes_per_block, groups, (int)items, stages};
-  return (int)(rows == 128 ? koala::launch<2>(map, a, smem, dev, (cudaStream_t)stream)
-                            : koala::launch<1>(map, a, smem, dev, (cudaStream_t)stream));
+             ldco, M, kx, kxp, H, passes_per_block, groups, (int)items, stages, seg_chunks};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (held < K) return (int)koala::launch<1, true>(map, a, smem, dev, s);
+  return (int)(rows == 128 ? koala::launch<2, false>(map, a, smem, dev, s)
+                            : koala::launch<1, false>(map, a, smem, dev, s));
 }

@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..constants import DELAY_SAMPLE, FRAME_LENGTH, SAMPLE_RATE
+from ..constants import FRAME_LENGTH, SAMPLE_RATE
 from ..device import resolve_device
 from ..errors import (
     ERROR_STACK,
@@ -84,7 +84,7 @@ class KoalaBatch:
 
     @property
     def delay_sample(self) -> int:
-        return DELAY_SAMPLE
+        return self._engine.delay_sample
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(pcm_to_float(x), device=self._device)
@@ -129,13 +129,14 @@ class KoalaBatch:
             raise KoalaInvalidArgumentError(
                 "Expected input of shape (%d, N), got %s" % (self._batch_size, pcm.shape))
         n = pcm.shape[1]
-        t = -(-(n + DELAY_SAMPLE) // FRAME_LENGTH)
+        delay = self._engine.delay_sample
+        t = -(-(n + delay) // FRAME_LENGTH)
         padded = np.zeros((self._batch_size, t * FRAME_LENGTH), np.float32)
         padded[:, :n] = pcm.astype(np.float32)
         hops = self._to_device(padded).reshape(self._batch_size, t, FRAME_LENGTH)
         self._state, out = self._engine.sequence_fast(self._params, self._state, hops)
         flat = out.reshape(self._batch_size, -1).cpu().numpy()
-        return float_to_pcm(flat[:, DELAY_SAMPLE:DELAY_SAMPLE + n])
+        return float_to_pcm(flat[:, delay:delay + n])
 
     def reset(self, streams: Optional[Sequence[int]] = None) -> None:
         """Reset all streams, or only the given stream indices."""

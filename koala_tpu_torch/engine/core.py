@@ -11,15 +11,21 @@ A model returns a real mask [*, K] or a complex one, (mask_re, mask_im)
 (``apply_mask``); a real mask is applied as it always was, re * mask and
 im * mask.
 
+A waveform model (its module declares ``domain = "waveform"``) takes hops
+and returns hops with its own analysis and synthesis: its engine state is
+``{"model": tree}`` alone, and the engine hands it the hops as they are.
+
 Two execution shapes: ``step`` (one 256-sample hop per stream) and
 ``sequence`` ([*, T, 256] hops per call). ``sequence_fast`` sends the leading
 hops that the model's ``fused_hops`` grants (a multiple of ``T_BLOCK``)
 through the fused engine kernel (ops/kernels/engine_fused.py) and the rest
 through ``sequence``. Every
-function runs on the device its tensors lie on. Output is delayed by exactly
-DELAY_SAMPLE = 256 samples. Under a profiler ``sequence`` records the span
-``engine.sequence`` (count ``hops``) and, inside it, ``engine.model`` around
-the model's ``apply_sequence`` (count ``frames``); see ``profiling.span``.
+function runs on the device its tensors lie on. Output is delayed by
+``Engine.delay_sample`` = 256 x the model's ``delay_hops(config)`` samples
+(one hop where the module declares none: the STFT's overlap-add). Under a
+profiler ``sequence`` records the span ``engine.sequence`` (count ``hops``)
+and, inside it, ``engine.model`` around the model's ``apply_sequence``
+(count ``frames``); see ``profiling.span``.
 """
 
 from __future__ import annotations
@@ -60,10 +66,15 @@ class Engine:
         self.kind = kind
         self.config = dict(config)
         self.model = get_model(kind)
+        self.waveform = getattr(self.model, "domain", "spectral") == "waveform"
+        delay_hops = getattr(self.model, "delay_hops", None)
+        self.delay_sample = FRAME_LENGTH * (delay_hops(self.config) if delay_hops else 1)
 
     def init_state(self, batch_shape: Tuple[int, ...], device):
         batch_shape = tuple(batch_shape)
         device = torch.device(device)
+        if self.waveform:
+            return {"model": self.model.init_state(batch_shape, self.config, device)}
         return {
             "input_carry": torch.zeros(batch_shape + (FRAME_LENGTH,), device=device),
             "ola": torch.zeros(batch_shape + (FRAME_LENGTH,), device=device),
@@ -72,6 +83,9 @@ class Engine:
 
     def step(self, params, state, hop):
         """hop [*, 256] float32 in [-1, 1] -> (state', out [*, 256])."""
+        if self.waveform:
+            model_state, out = self.model.step(params, state["model"], hop, self.config)
+            return {"model": model_state}, out
         frame = torch.cat([state["input_carry"], hop], dim=-1)
         re, im = stft_ops.stft_frame(frame)
         model_state, mask = self.model.step(params, state["model"], re, im, self.config)
@@ -83,7 +97,13 @@ class Engine:
 
     def sequence_full(self, params, state, hops):
         """hops [*, T, 256] -> (state', out, mask, (re, im)); ``mask`` is the
-        model's: a tensor, or (mask_re, mask_im) for a complex mask."""
+        model's: a tensor, or (mask_re, mask_im) for a complex mask; a waveform
+        model has neither (None, None)."""
+        if self.waveform:
+            with profiling.span("engine.model", frames=hops.shape[-2]):
+                model_state, out = self.model.apply_sequence(params, state["model"], hops,
+                                                             self.config)
+            return {"model": model_state}, out, None, None
         t_axis = hops.dim() - 2
         prev = torch.cat([state["input_carry"].unsqueeze(t_axis),
                           hops.narrow(t_axis, 0, hops.shape[t_axis] - 1)], dim=t_axis)

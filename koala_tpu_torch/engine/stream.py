@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .._version import __version__
-from ..constants import DELAY_SAMPLE, FRAME_LENGTH, SAMPLE_RATE
+from ..constants import FRAME_LENGTH, SAMPLE_RATE
 from ..device import resolve_device
 from ..errors import (
     ERROR_STACK,
@@ -58,7 +58,7 @@ def load_model(model_path, device):
     tree, config = params_io.load_params(model_path)
     kind = kind_of(config)
     engine = make_engine(kind, config)
-    return engine, params_io.params_from_numpy(tree, device, kind)
+    return engine, params_io.params_from_numpy(tree, device, kind, config)
 
 
 def snapshot(state) -> dict:
@@ -143,14 +143,15 @@ class Koala:
         self._check_handle()
         pcm = np.asarray(pcm)
         n = pcm.shape[-1]
-        t = -(-(n + DELAY_SAMPLE) // FRAME_LENGTH)
+        delay = self._engine.delay_sample
+        t = -(-(n + delay) // FRAME_LENGTH)
         padded = np.zeros((t * FRAME_LENGTH,), np.float32)
         padded[:n] = np.asarray(pcm, np.float32)
         hops = torch.as_tensor(pcm_to_float(padded).reshape(t, FRAME_LENGTH),
                                device=self._device)
         self._state, out = self._engine.sequence(self._params, self._state, hops)
         flat = out.reshape(-1).cpu().numpy()
-        return float_to_pcm(flat[DELAY_SAMPLE:DELAY_SAMPLE + n])
+        return float_to_pcm(flat[delay:delay + n])
 
     def save_state(self) -> dict:
         """Snapshot the streaming state as host numpy arrays (same keys as
@@ -173,7 +174,7 @@ class Koala:
 
     @property
     def delay_sample(self) -> int:
-        return DELAY_SAMPLE
+        return self._engine.delay_sample
 
     @property
     def version(self) -> str:

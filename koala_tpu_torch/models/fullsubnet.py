@@ -253,8 +253,8 @@ def _frame(params: FullSubNet, st, mag, cfg):
         fb_in = mag / (new["fb_sum"] / (count * f) + EPS).unsqueeze(-1)
         x = _stack(params, "fb", fb_in, st["fb_h"], st["fb_c"], new["fb_h"], new["fb_c"], cfg)
         fb = torch.relu(_linear(x, params, "fb", cfg))                           # [n, F]
-    with profiling.span("fullsubnet.subband", frames=1, rows=n * f) as span:
-        before = lstm.launches + rowmm.launches
+    with profiling.counted_span("fullsubnet.subband", lambda: lstm.launches + rowmm.launches,
+                                frames=1, rows=n * f):
         idx = constant_on(_neighbours, mag.device, f, cfg["sb_num_neighbors"])
         feats = torch.cat([mag[:, idx], fb.unsqueeze(-1)], dim=-1)              # [n, F, 32]
         new["sb_sum"] = st["sb_sum"] + _row_sum(feats)
@@ -268,8 +268,6 @@ def _frame(params: FullSubNet, st, mag, cfg):
         k, limit = float(cfg["crm_k"]), float(cfg["crm_limit"])
         m = torch.clamp(m, -limit, limit)
         mask = -k * torch.log((k - m) / (k + m))
-        if span is not None:
-            span.counts["launches"] = lstm.launches + rowmm.launches - before
     return new, (mask[..., 0], mask[..., 1])
 
 

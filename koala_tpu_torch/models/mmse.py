@@ -79,15 +79,13 @@ def apply_sequence(params, state, re, im, config: Dict[str, Any] = None):
     = N x K, ``kernel``: the kernel's launches in it, 1 on a card, else 0)."""
     lead, (t_len, k) = tuple(re.shape[:-2]), re.shape[-2:]
     n = math.prod(lead)
-    with profiling.span("mmse.gain", frames=t_len, columns=n * k) as span:
-        before = kernel.launches
+    with profiling.counted_span("mmse.gain", lambda: kernel.launches, key="kernel",
+                                frames=t_len, columns=n * k):
         noise, prev, count, mask = kernel.mmse_gain(
             re.reshape(n, t_len, k).contiguous(), im.reshape(n, t_len, k).contiguous(),
             state["noise"].reshape(n, k).contiguous(),
             state["prev_gain2_post"].reshape(n, k).contiguous(),
             state["count"].reshape(n).contiguous(), *gain_rule(config))
-        if span is not None:
-            span.counts["kernel"] = kernel.launches - before
     new_state = {"noise": noise.reshape(lead + (k,)),
                  "prev_gain2_post": prev.reshape(lead + (k,)), "count": count.reshape(lead)}
     return new_state, mask.reshape(re.shape)

@@ -57,7 +57,9 @@ def _unflatten(flat: Dict[str, np.ndarray]):
         if not isinstance(node, dict):
             return node
         keys = list(node.keys())
-        if keys and all(k.isdigit() for k in keys):
+        # a list's items are 0 .. n-1; other digit names (a Sequential's
+        # layers with weights, "0" and "2") stay a dict
+        if keys and set(keys) == {str(i) for i in range(len(keys))}:
             return [listify(node[str(i)]) for i in range(len(keys))]
         return {k: listify(v) for k, v in node.items()}
 
@@ -133,12 +135,15 @@ def default_model_path() -> str:
     return os.path.join(os.path.dirname(here), "models", "koala_params_tpu.pv")
 
 
-def params_from_numpy(tree, device, kind: str = None) -> torch.nn.Module:
+def params_from_numpy(tree, device, kind: str = None, config=None) -> torch.nn.Module:
     """Parameter tree of numpy arrays -> the port's parameter module on
     ``device``: the ``Params`` of ``kind``, the model file's
     (``config["kind"]``); without it, the kind the tree's layout implies
-    (``registry.kind_of``)."""
-    params = get_model(kind or kind_of(None, tree)).Params(tree)
+    (``registry.kind_of``). A kind's ``params_from_tree`` makes it from the
+    tree and the file's ``config`` where it has one (a seeded draw)."""
+    model = get_model(kind or kind_of(None, tree))
+    build = getattr(model, "params_from_tree", None)
+    params = build(tree, config) if build is not None else model.Params(tree)
     return params.to(torch.device(device))
 
 

@@ -7,12 +7,24 @@ its ``kind`` (``kind_of``); each kind is one module of ``models/`` with
     apply_sequence(params, state, re, im, config) -> (state', masks)
 
 and, where it needs them, ``normalize_config(config, tree)`` (the config
-reconciled with its weights) and ``fused_hops(params, config, hops)`` (the
+reconciled with its weights), ``fused_hops(params, config, hops)`` (the
 leading hops that ``Engine.sequence_fast`` sends through the fused engine
-kernel). A mask is a tensor (real) or a pair (mask_re, mask_im) (complex;
-the engine's ``apply_mask``). Kinds: ``mask_gru`` (the flagship), ``mmse``
-(the parameter-free baseline), ``fullsubnet`` (FullSubNet, a full-band and a
-sub-band LSTM with a complex mask) and ``identity``.
+kernel) and ``params_from_tree(tree, config)`` (the parameter module of a
+model file's tree, where ``Params(tree)`` is not it). A mask is a tensor
+(real) or a pair (mask_re, mask_im) (complex; the engine's ``apply_mask``).
+
+A module that declares ``domain = "waveform"`` takes and returns hops, with
+its own analysis and synthesis in place of the engine's STFT:
+
+    step(params, state, hop, config)              -> (state', out hop [*, 256])
+    apply_sequence(params, state, hops, config)   -> (state', out hops [*, T, 256])
+
+``delay_hops(config)``, where a module declares it, is the hops its output
+lags its input (``Engine.delay_sample`` = 256 x it; one hop where it is not
+declared). Kinds: ``mask_gru`` (the flagship), ``mmse`` (the parameter-free
+baseline), ``fullsubnet`` (FullSubNet, a full-band and a sub-band LSTM with
+a complex mask), ``demucs`` (denoiser's causal Demucs, a waveform U-Net with
+an LSTM, 3 hops of delay) and ``identity``.
 """
 
 from __future__ import annotations
@@ -20,12 +32,13 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from ..errors import ERROR_STACK, KoalaKeyError, raise_with_stack
-from . import fullsubnet, identity, mask_gru, mmse
+from . import demucs, fullsubnet, identity, mask_gru, mmse
 
 MODEL_REGISTRY: Dict[str, Any] = {
     "mask_gru": mask_gru,
     "mmse": mmse,
     "fullsubnet": fullsubnet,
+    "demucs": demucs,
     "identity": identity,
 }
 

@@ -107,7 +107,7 @@ _SIGNATURES = {
     "koala_rowmm_variant": ([_I, _P], _I),
     # x, h, c, h_out, c_out, w, b, their row strides, M, kx, kxp, H, tile rows,
     # passes a block, pass groups
-    "koala_lstm_cell": ([_P] * 7 + [_L] * 5 + [_I] * 7 + [_P], _I),
+    "koala_lstm_cell": ([_P] * 7 + [_L] * 5 + [_I] * 8 + [_P], _I),
     # re, im, noise, prev, count, mask, noise', prev', count', N, T, K, dd_beta,
     # 1 - dd_beta, 1 - noise_alpha, gain floor, SNR cap, noise floor
     "koala_mmse_gain": ([_P] * 9 + [_I] * 3 + [_F] * 6 + [_P], _I),

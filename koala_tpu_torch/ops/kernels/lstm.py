@@ -14,7 +14,8 @@ PyTorch's [4H, in] layout; ``unstack`` gives PyTorch's gate order back.
 
 It replaces no TPU kernel: the JAX package has no LSTM. It serves
 FullSubNet's two recurrences (models/fullsubnet.py): the sub-band LSTM on
-B x 257 rows and the full-band LSTM on B rows. On the card (csrc/lstm.cu)
+B x 257 rows and the full-band LSTM on B rows; and Demucs's bottleneck LSTM
+(models/demucs.py) on B rows at kx = H = 1024. On the card (csrc/lstm.cu)
 one launch is the product and the cell, a warp-specialised persistent
 kernel in clusters of two blocks:
 
@@ -33,9 +34,12 @@ kernel in clusters of two blocks:
 
 The tile height follows the width alone, never the row count: 128 rows
 where the A tile and a ring of four stages fit in a block's 227 KB (the
-sub-band's K = 416 and 768), else 64 (the full band's 784 and 1024). A row's
-sums run over k in one fixed order at any place in any tile, so a stream's
-bits do not depend on its batch. ``plan`` splits the passes into groups
+sub-band's K = 416 and 768), else 64 (the full band's 784 and 1024). Where
+even 64 rows of the whole depth do not fit (Demucs's LSTM, kx = H = 1024,
+models/demucs.py), the tile holds K-panels (``tile_depth``: 1024 of 2048)
+and each pass reloads the segments it walks, an odd pass the last segment
+first. A row's sums run over k in one order, the pass's own, at any place
+in any tile, so a stream's bits do not depend on its batch. ``plan`` splits the passes into groups
 from the shape, so few rows still fill the card. At 526,336 rows the ring's
 delivery of W into each block bounds the kernel first, then each tile's A
 load and the gates' special functions, neither hidden behind the products.
@@ -107,28 +111,53 @@ def unstack(w: torch.Tensor) -> torch.Tensor:
     return out.t()
 
 
+def _fits(rows: int, depth: int, ring: int) -> bool:
+    """Whether an A tile of ``rows`` x ``depth`` (bf16, in 64-deep panels of
+    128-byte rows) and a ring of ``ring`` stages fit in a block."""
+    return SMEM_SLACK + rows * -(-depth // 64) * 128 + ring * STAGE_BYTES <= SMEM_BYTES
+
+
 def tile_rows(kx: int, h: int) -> int:
-    """Rows of the kernel's tile at a width: 128 where the A tile (bf16, in
-    64-deep panels of 128-byte rows) and a ring of RING_128 stages fit in a
-    block's shared memory, else 64. From (kx, H) alone, never the row count."""
+    """Rows of the kernel's tile at a width: 128 where the whole depth and a
+    ring of RING_128 stages fit in a block's shared memory, else 64 (in
+    K-panels, ``tile_depth``, where even 64 rows of the whole depth do not
+    fit). From (kx, H) alone, never the row count."""
+    return 128 if _fits(128, padded(kx) + h, RING_128) else 64
+
+
+def tile_depth(kx: int, h: int) -> int:
+    """Depth the A tile holds at a width: the whole depth kxp + H where it
+    fits beside a ring (RING_128 stages at 128 rows, RING_64 at 64), else the
+    K-panel: the depth cut into the fewest equal segments, each a multiple
+    of 64, of which 64 rows fit beside a ring of RING_128 stages (1024 of
+    2048 at Demucs's kx 1024, H 1024). Each pass then walks the segments,
+    reloading each, in the undivided tile's order of sums."""
     k = padded(kx) + h
-    panel = -(-k // 64) * 128
-    for rows, ring in ((128, RING_128), (64, RING_64)):
-        if SMEM_SLACK + rows * panel + ring * STAGE_BYTES <= SMEM_BYTES:
-            return rows
-    raise ValueError("lstm_cell: depth %d (kx %d + H %d) is too deep for the kernel's tile"
-                     % (k, kx, h))
+    rows = tile_rows(kx, h)
+    if _fits(rows, k, RING_128 if rows == 128 else RING_64):
+        return k
+    n = 2
+    while not _fits(64, -(-k // (64 * n)) * 64, RING_128):
+        n += 1
+    return -(-k // (64 * n)) * 64
 
 
 def plan(m: int, kx: int, h: int) -> Tuple[int, int, int]:
     """(tile rows, passes a block, pass groups) of a launch over m rows at
     (kx, H): the tile height from the width alone; the passes split over as
     many groups as it takes for the work items (pair of row tiles, group of
-    passes) to reach one a cluster of two blocks on an H100."""
+    passes) to reach one a cluster of two blocks on an H100. In K-panels,
+    where every pass reloads its rows, as many as fit the clusters in one
+    round: a second round for a few items would cost each of its passes
+    again."""
     rows = tile_rows(kx, h)
     pairs = -(-(-(-m // rows)) // CLUSTER)
     passes = -(-h // UNITS)
-    split = min(passes, max(1, -(-(H100_SMS // CLUSTER) // pairs)))
+    clusters = H100_SMS // CLUSTER
+    if tile_depth(kx, h) < padded(kx) + h:
+        split = min(passes, max(1, clusters // pairs))
+    else:
+        split = min(passes, max(1, -(-clusters // pairs)))
     per_block = -(-passes // split)
     return rows, per_block, -(-passes // per_block)
 
@@ -181,11 +210,12 @@ def _launch(x, h, c, w, b, h_out, c_out) -> None:
     rows, per_block, groups = plan(m, kx, hid)
     if -(-m // rows) * groups >= 2 ** 31:
         raise ValueError("lstm_cell: %d rows are too many for one launch" % m)
+    depth = tile_depth(kx, hid)
     status = _build.library().koala_lstm_cell(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
         w.data_ptr(), b.data_ptr(), x.stride(0), h.stride(0), c.stride(0), h_out.stride(0),
         c_out.stride(0), m, kx, padded(kx), hid, rows, per_block, groups,
-        _build.stream_handle(w.device))
+        -(-depth // 64) * 64, _build.stream_handle(w.device))
     launches += 1
     _build.check(status, "koala_lstm_cell")
 
@@ -216,7 +246,9 @@ def bound(m: int, kx: int, h: int):
     (``profiling.bound``): x, h and c read and h', c' written in f32, the
     weights (bf16) and bias once; 2 m (kx + H) 4H bf16 operations on the
     tensor cores beside the cell's f32 math (four gate functions, two
-    products and an add, a tanh: about 40 operations a unit)."""
+    products and an add, a tanh: about 40 operations a unit). The same at
+    every depth, K-panels included: their reloads of the rows come from L2
+    and are the design's cost, not the work's."""
     n_bytes = (m * kx + 4 * m * h) * 4 + (padded(kx) + h) * 4 * h * 2 + 4 * h * 4
     mm = 2 * m * (kx + h) * 4 * h
     ew = 40 * m * h
@@ -224,4 +256,4 @@ def bound(m: int, kx: int, h: int):
 
 
 __all__ = ["lstm_cell", "lstm_cell_ref", "stack_weights", "unstack", "plan", "tile_rows",
-           "padded", "bound"]
+           "tile_depth", "padded", "bound"]

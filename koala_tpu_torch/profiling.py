@@ -14,8 +14,9 @@ at a layer boundary (the corpus runner's upload and launch, the fused
 entry's segment walk, the unfused sequence and its model), on the clock of
 the profiler's events (``time.time_ns``). A span is recorded only while a
 torch profiler runs on the calling thread (``recording``; the profiler's own
-scope), so an unprofiled call pays one check; ``spans(t0_ns, t1_ns)`` reads
-the records kept.
+scope), so an unprofiled call pays one check; ``counted_span`` adds the
+kernel launches made inside as a count; ``spans(t0_ns, t1_ns)`` reads the
+records kept.
 
 and, for the port's measurements (``chip_smoke.py``, ``scripts/``):
 ``time_ms`` (CUDA events, eager or queued behind a spin kernel),
@@ -34,7 +35,7 @@ import os
 import tempfile
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -164,6 +165,17 @@ def span(name: str, batch: Optional[int] = None, **counts: int):
     if not recording():
         return _OFF
     return _Span(name, batch, counts)
+
+
+@contextlib.contextmanager
+def counted_span(name: str, launched: Callable[[], int], key: str = "launches", **counts: int):
+    """``span`` whose count ``key`` is filled in on exit: how far
+    ``launched()`` (the sum of some kernels' launch counters) rose inside."""
+    before = launched()
+    with span(name, **counts) as s:
+        yield s
+        if s is not None:
+            s.counts[key] = launched() - before
 
 
 def spans(t0_ns: int = 0, t1_ns: Optional[int] = None) -> List[Span]:

@@ -57,7 +57,7 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .constants import DELAY_SAMPLE, FRAME_LENGTH, SAMPLE_RATE
+from .constants import FRAME_LENGTH, SAMPLE_RATE
 from .device import device_scope, resolve_device
 from .engine.batch import masked_reset
 from .engine.stream import load_model, validate_access_key
@@ -495,7 +495,7 @@ class StreamingServer:
 
     @property
     def delay_sample(self) -> int:
-        return DELAY_SAMPLE
+        return self._engine.delay_sample
 
     @property
     def frame_length(self) -> int:

@@ -80,14 +80,15 @@ def evaluate(params, config: Dict[str, Any], speech: np.ndarray, noise: np.ndarr
     config = dict(config, use_pallas=False)
     engine = make_engine(kind_of(config), config)
     if not isinstance(params, torch.nn.Module):
-        params = params_from_numpy(params, dev, engine.kind)
+        params = params_from_numpy(params, dev, engine.kind, config)
     params = params.to(dev)
 
     mixed = mix_pcm(speech, noise)
     out_speech = _stream_enhance(engine, params, speech, dev)
     out_noise = _stream_enhance(engine, params, noise, dev)
     out_mixed = _stream_enhance(engine, params, mixed, dev)
-    return harness_results(speech, noise, out_speech, out_noise, out_mixed)
+    return harness_results(speech, noise, out_speech, out_noise, out_mixed,
+                           delay=engine.delay_sample)
 
 
 def mix_pcm(speech: np.ndarray, noise: np.ndarray) -> np.ndarray:

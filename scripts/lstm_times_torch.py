@@ -1,10 +1,12 @@
-"""Times of the LSTM-cell kernel (``csrc/lstm.cu``) at FullSubNet's four widths.
+"""Times of the LSTM-cell kernel (``csrc/lstm.cu``) at FullSubNet's four widths
+and Demucs's one.
 
     python3 scripts/lstm_times_torch.py [--package-root DIR] [--reps N] [--out FILE]
 
-At each of the model's layer-steps at the benchmark's batch of 2048 streams
-(the full band's kx 257 and 512 on 2048 rows at H = 512, the sub-band's kx
-32 and 384 on 526,336 rows at H = 384) it checks the kernel against its
+At each of the models' layer-steps at the benchmark's batch of 2048 streams
+(FullSubNet's full band kx 257 and 512 on 2048 rows at H = 512, its
+sub-band's kx 32 and 384 on 526,336 rows at H = 384; Demucs's kx 1024 on
+2048 rows at H = 1024, depth 2048, in K-panels) it checks the kernel against its
 plain version on the first 257 rows, then prints the card's milliseconds a
 launch (CUDA events over ``--reps`` launches after warm-up, outputs
 preallocated), the bound (``lstm.bound``), TFLOP/s and the share of the
@@ -27,9 +29,10 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# (band, kx, H, rows) of FullSubNet's layer-steps at B = 2048
+# (band, kx, H, rows) of FullSubNet's layer-steps and Demucs's at B = 2048
 SHAPES = (("fullband", 257, 512, 2048), ("fullband", 512, 512, 2048),
-          ("subband", 32, 384, 2048 * 257), ("subband", 384, 384, 2048 * 257))
+          ("subband", 32, 384, 2048 * 257), ("subband", 384, 384, 2048 * 257),
+          ("demucs", 1024, 1024, 2048))
 ATOL = 2e-5     # h' and c' against the plain version (sums in another order)
 
 
@@ -75,7 +78,8 @@ def main() -> None:
               % (band, kx, h, rows, ms, entry["bound_ms"], entry["bound_by"], entry["tflops"]),
               flush=True)
         del x, h0, c0, state, out_h, out_c
-    result["frame_ms"] = sum(e["ms"] for e in result["widths"])
+    # FullSubNet's frame: its four layer-steps
+    result["frame_ms"] = sum(e["ms"] for e in result["widths"] if e["band"] != "demucs")
     line = json.dumps(result)
     print(line)
     if args.out:

@@ -1392,3 +1392,164 @@ def test_fullsubnet_server_equals_process(cuda_device, fsn_pcm):
             assert np.array_equal(np.concatenate(got), want[s]), s
     finally:
         server.close()
+
+
+# -- Demucs and the LSTM kernel at depth 2048 -----------------------------------
+
+# Demucs's layer-step: kx 1024 + H 1024, whose A tile the kernel holds in
+# K-panels; the same tolerance as FullSubNet's widths (sums of 2048 terms in
+# the tensor cores' order against the library's still differ by about 1e-6)
+DEMUCS_LSTM = (1024, 1024)
+
+
+@pytest.fixture
+def demucs_lstm_launch(cuda_device):
+    """Demucs's layer-step case at 4096 rows and its h', c' from one launch."""
+    from koala_tpu_torch.ops.kernels import lstm
+
+    case = _lstm_case(*DEMUCS_LSTM, 4096, cuda_device)
+    return case, lstm.lstm_cell(*case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 64, 2048])
+def test_lstm_kernel_at_depth_2048_matches_its_plain_version(cuda_device, rows):
+    from koala_tpu_torch.ops.kernels import lstm
+
+    assert lstm.tile_rows(*DEMUCS_LSTM) == 64 and lstm.tile_depth(*DEMUCS_LSTM) == 1024
+    x, h0, c0, w, b = _lstm_case(*DEMUCS_LSTM, rows, cuda_device)
+    before = lstm.launches
+    out_h, out_c = lstm.lstm_cell(x, h0, c0, w, b)
+    torch.cuda.synchronize()
+    assert lstm.launches == before + 1
+    ref_h, ref_c = lstm.lstm_cell_ref(x, h0, c0, w, b)
+    assert (out_h - ref_h).abs().max() < LSTM_ATOL
+    assert (out_c - ref_c).abs().max() < LSTM_ATOL
+    assert torch.isfinite(out_h).all() and float(out_h.abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 64, 129, 2048])
+def test_lstm_kernel_at_depth_2048_gives_a_row_the_same_bits_at_any_row_count(
+        cuda_device, demucs_lstm_launch, rows):
+    from koala_tpu_torch.ops.kernels import lstm
+
+    (x, h0, c0, w, b), (full_h, full_c) = demucs_lstm_launch
+    part_h, part_c = lstm.lstm_cell(x[:rows], h0[:rows], c0[:rows], w, b)
+    assert torch.equal(part_h, full_h[:rows]) and torch.equal(part_c, full_c[:rows]), rows
+
+
+@pytest.fixture(scope="module")
+def demucs_model(tmp_path_factory):
+    """dns64's configuration at its published widths, its weights drawn from
+    the seed at load (the file holds the placeholder)."""
+    import json
+    import sys
+
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    with open(os.path.join(REPO, "benchmark", "configs", "demucs-dns64.json")) as f:
+        cfg = json.load(f)["model"]
+    path = str(tmp_path_factory.mktemp("demucs") / "dns64.pv")
+    params_io.save_params(path, {"empty": np.zeros((1,), np.float32)}, cfg)
+    return path, cfg
+
+
+@pytest.mark.cuda
+def test_demucs_step_equals_sequence_on_the_card(cuda_device, demucs_model, fsn_pcm):
+    """Two streams at dns64's widths: Engine.step hop by hop, a sequence cut
+    into calls of 1, 3 and 7 hops, and one call give the same bits."""
+    from koala_tpu_torch.engine.stream import load_model
+
+    eng, params = load_model(demucs_model[0], cuda_device)
+    hops = torch.as_tensor(fsn_pcm[:2, :24 * 256] / 32768.0, dtype=torch.float32,
+                           device=cuda_device).reshape(2, 24, 256)
+    with torch.inference_mode():
+        _, whole = eng.sequence(params, eng.init_state((2,), cuda_device), hops)
+        for cut in (1, 3, 7):
+            st, parts = eng.init_state((2,), cuda_device), []
+            for lo in range(0, 24, cut):
+                st, o = eng.sequence(params, st, hops[:, lo:lo + cut])
+                parts.append(o)
+            assert torch.equal(torch.cat(parts, dim=1), whole), cut
+        st, steps = eng.init_state((2,), cuda_device), []
+        for t in range(24):
+            st, o = eng.step(params, st, hops[:, t])
+            steps.append(o)
+    assert torch.equal(torch.stack(steps, dim=1), whole)
+    assert float(whole[:, :3].abs().max()) == 0.0 and float(whole[:, 3:].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_demucs_runner_matches_the_reference(cuda_device, demucs_model, fsn_pcm, monkeypatch):
+    """CorpusRunner at B = 4 x 6.0 s, dns64's widths, against the benchmark's
+    plain reference at bf16 products: its pooled err_rms under the cell's
+    limit, and one LSTM launch a layer and hop."""
+    import json
+
+    from benchmark import compare
+    from benchmark.reference import demucs as ref
+    from koala_tpu_torch.ops.kernels import lstm
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh
+
+    path, cfg = demucs_model
+    batch = (fsn_pcm / 32768.0).astype(np.float32)
+    runner = CorpusRunner(path, global_batch=4, utterance_samples=375 * 256,
+                          mesh=make_mesh(["gpu:0"]))
+    before = lstm.launches
+    out = runner.enhance_batch(batch)
+    torch.cuda.synchronize()
+    assert lstm.launches - before == 2 * 375
+    hops = torch.as_tensor(batch, device=cuda_device).reshape(4, 375, 256)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    want = ref.Reference({"model": cfg}, path, cuda_device).enhance(
+        hops, {"products": "bfloat16", "resample": "float32"})
+    parts = [compare.errors(o, r) for o, r in zip(out.cpu().numpy(), want.cpu().numpy())]
+    err = float(np.sqrt(sum(p[0] for p in parts) / sum(p[1] for p in parts)))
+    with open(os.path.join(REPO, "benchmark", "cells", "demucs-dns64.wash.b2048.json")) as f:
+        limit = json.load(f)["limits"]["err_rms"]
+    print("demucs runner err_rms %.4g (limit %g)" % (err, limit))
+    assert err < limit
+
+
+@pytest.mark.cuda
+def test_demucs_server_equals_process(cuda_device, demucs_model, fsn_pcm):
+    """The StreamingServer's rounds (full chunks through the sequence, the
+    rest through the captured step graph) against Koala.process, bit for bit,
+    at dns64's widths; both report the 768-sample delay."""
+    import time
+
+    from koala_tpu_torch.serve import StreamingServer
+
+    path = demucs_model[0]
+    pcm = fsn_pcm[:2, :40 * 256]
+    k = koala_tpu_torch.create(ACCESS_KEY, model_path=path, device="gpu")
+    try:
+        assert k.delay_sample == 768
+        want = []
+        for row in pcm:
+            k.reset()
+            want.append(np.concatenate([k.process(row[s:s + 256])
+                                        for s in range(0, len(row), 256)]))
+    finally:
+        k.delete()
+    server = StreamingServer(ACCESS_KEY, model_path=path, device="gpu", num_streams=2,
+                             chunk_frames=8)
+    try:
+        assert server.delay_sample == 768
+        for s in range(2):
+            server.push(s, pcm[s, :(13 + 7 * s) * 256])
+        time.sleep(0.5)
+        for s in range(2):
+            server.push(s, pcm[s, (13 + 7 * s) * 256:])
+        for s in range(2):
+            got, deadline = [], time.time() + 120
+            while sum(len(g) for g in got) < pcm.shape[1] and time.time() < deadline:
+                chunk = server.pull(s)
+                if len(chunk):
+                    got.append(chunk)
+                else:
+                    time.sleep(0.005)
+            assert np.array_equal(np.concatenate(got), want[s]), s
+    finally:
+        server.close()
