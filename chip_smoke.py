@@ -189,16 +189,25 @@
 12c. Demucs (``models/demucs.py``) at dns64's widths, its weights drawn from
    the benchmark configuration's seed: ``CorpusRunner.enhance_batch`` at the
    cell's 2048 x 375 hops (the counts reset just before it): 750 LSTM
-   launches (two a hop), ``rowmm``, no other kernel and no plain version;
-   two streams' ``Koala.process`` bit for bit their rows (a ``demucs corpus
-   runner`` line).
-13. Prints one ``{"kernels": [...]}`` line (seven entries: each kernel's
+   launches (two a hop), 1175 ``rowmm`` launches of which 705 of its fused
+   entry (15 a block of 8 hops, 47 blocks), 235 overlap passes (5 a block),
+   no other kernel and no plain version; the same batch through the plain
+   U-Net (``_encoder_plain``, ``_decoder_plain``) bit for bit; two streams'
+   ``Koala.process`` bit for bit their rows, 15 fused launches (the narrow
+   kernels) and 5 overlap passes a hop, no plain version (a ``demucs corpus
+   runner`` line); each of a block's 15 fused products and 5 overlap passes
+   at 2048 x 8 hops bit for bit its plain version, timed beside its bound
+   and the plain version (a ``demucs <product>`` line each).
+13. Prints one ``{"kernels": [...]}`` line (nine entries: each kernel's
    launches by path and in all; ``rowmm``'s times are the sum over the nine
    products at 376 x 64 rows, beside ``rowmm_simple``'s and
    ``torch.matmul``'s, with the same at 64 rows and one, and
    ``bits_equal_simple``; ``lstm_cell``'s the sum over a frame's four
    layer-steps at B = 2048, with Demucs's hop of two beside it and its
-   launches on the Demucs paths; ``mmse_gain``'s at [8192, 375, 257]), the
+   launches on the Demucs paths; ``mmse_gain``'s at [8192, 375, 257];
+   ``rowmm_fused``'s and ``overlap_add``'s the sums over a block's fused
+   products and overlap passes at 2048 x 8 hops, their launches on the
+   Demucs paths), the
    card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -1090,7 +1099,8 @@ def pull_all(srv, n_streams, frames, deadline_s=120.0):
 class PlainCalls:
     """Counts the calls of the kernels' plain versions (the floor's, the
     GRU's with the scan branch's step, the fused entry's, the fixed-order
-    product's, the mmse gain recurrence's, the LSTM cell's) and of
+    product's and its fused entry's, the overlap pass's, the mmse gain
+    recurrence's, the LSTM cell's) and of
     ``torch.matmul`` (the
     products' route where autograd records a graph) while installed."""
 
@@ -1100,6 +1110,8 @@ class PlainCalls:
              ("koala_tpu_torch.ops.kernels.gru", "gru_stack_ref"),
              ("koala_tpu_torch.ops.kernels.engine_fused", "fused_sequence_ref"),
              ("koala_tpu_torch.ops.kernels.rowmm", "rowmm_ref"),
+             ("koala_tpu_torch.ops.kernels.rowmm", "fused_ref"),
+             ("koala_tpu_torch.ops.kernels.overlap", "overlap_add_ref"),
              ("koala_tpu_torch.ops.kernels.mmse", "mmse_gain_ref"),
              ("koala_tpu_torch.ops.kernels.lstm", "lstm_cell_ref"),
              ("torch", "matmul"))
@@ -3230,20 +3242,36 @@ def fullsubnet_phase(kt, dev, card):
 # streams whose Koala.process is held to their rows
 DEMUCS_B = 2048
 DEMUCS_PROCESS_STREAMS = 2
+# launches in that batch: rowmm's (25 products a block of 8 hops, 47 blocks),
+# of them its fused entry's (each level's strided convolution and two 1x1s),
+# the overlap passes (one a level) and the LSTM's (two a hop)
+DEMUCS_ROWMM, DEMUCS_FUSED, DEMUCS_OVERLAP, DEMUCS_LSTM = 47 * 25, 47 * 15, 47 * 5, 2 * 375
+# a hop of one stream's Koala.process: the fused entry's launches (its
+# narrow kernels at every level) and the overlap passes
+DEMUCS_FUSED_HOP, DEMUCS_OVERLAP_HOP = 15, 5
 
 
 def demucs_phase(kt, card, reset_counts, counts):
     """Phase 12c: Demucs (models/demucs.py) at dns64's widths, its weights
     drawn from ``benchmark/configs/demucs-dns64.json``'s seed, on the
     benchmark cell's path: one ``CorpusRunner.enhance_batch`` of DEMUCS_B x
-    375 hops after a warm-up, the counts reset just before it: two LSTM
-    launches a hop, ``rowmm``, no other counted kernel and no plain version;
-    then two streams' ``Koala.process``, hop by hop, bit for bit their rows
-    of that batch (a ``demucs corpus runner`` line). Returns the LSTM
-    launches by path."""
-    from koala_tpu_torch.models import params_io
+    375 hops after a warm-up, the counts reset just before it: DEMUCS_LSTM
+    LSTM launches, DEMUCS_ROWMM ``rowmm`` launches of which DEMUCS_FUSED of
+    its fused entry, DEMUCS_OVERLAP overlap passes, no other counted kernel
+    and no plain version; the same batch through the plain U-Net
+    (``_encoder_plain``, ``_decoder_plain``) bit for bit; then two streams'
+    ``Koala.process``, hop by hop, bit for bit their rows of that batch, with
+    DEMUCS_FUSED_HOP launches of the fused entry (its narrow kernels) and
+    DEMUCS_OVERLAP_HOP overlap passes a hop and no plain version (a ``demucs
+    corpus runner`` line); then each fused product and overlap pass of one
+    block of the cell (2048 x 8 hops) held bit for bit to its plain version
+    and timed beside its bound (``scripts/unet_fused_times_torch.py``'s
+    ``measure``, a ``demucs ...`` line each). Returns the LSTM launches by
+    path and the ``kernels`` line's ``rowmm_fused`` and ``overlap_add``
+    entries."""
+    from koala_tpu_torch.models import demucs, params_io
     from koala_tpu_torch.models.base import Placeholder
-    from koala_tpu_torch.ops.kernels import lstm
+    from koala_tpu_torch.ops.kernels import lstm, overlap, rowmm
     from koala_tpu_torch.parallel import CorpusRunner, make_mesh
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3260,43 +3288,104 @@ def demucs_phase(kt, card, reset_counts, counts):
         runner.enhance_batch(batch)                 # warm-up (lazy set-up)
         torch.cuda.synchronize()
         reset_counts()
-        before = lstm.launches
+        before, fused, tails = lstm.launches, rowmm.fused_launches, overlap.launches
         t0 = time.perf_counter()
         with PlainCalls() as plain:
-            out = runner.enhance_batch(batch)
+            out = runner.enhance_batch(batch).clone()
             torch.cuda.synchronize()
         batch_s = time.perf_counter() - t0
         launched = counts()
         runner_launches = lstm.launches - before
+        fused, tails = rowmm.fused_launches - fused, overlap.launches - tails
+        stages = demucs._encoder, demucs._decoder
+        demucs._encoder, demucs._decoder = demucs._encoder_plain, demucs._decoder_plain
+        try:
+            t0 = time.perf_counter()
+            plain_out = runner.enhance_batch(batch)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        finally:
+            demucs._encoder, demucs._decoder = stages
+        plain_equal = torch.equal(out, plain_out)
         rows = np.clip(np.round(out[:DEMUCS_PROCESS_STREAMS].reshape(DEMUCS_PROCESS_STREAMS, -1)
                                 .cpu().numpy().astype(np.float64) * 32768.0),
                        -32768, 32767).astype(np.int16)
-        del runner, out
-        before = lstm.launches
-        for s in range(DEMUCS_PROCESS_STREAMS):
-            k = kt.create(ACCESS_KEY, model_path=path, device="gpu")
-            try:
-                if k.delay_sample != 768:
-                    fail("demucs: Koala.delay_sample is %d, not 768" % k.delay_sample)
-                got = np.concatenate([k.process(pcm[s, i:i + 256])
-                                      for i in range(0, pcm.shape[1], 256)])
-            finally:
-                k.delete()
-            if not np.array_equal(got, rows[s]):
-                fail("demucs: stream %d's Koala.process is %d LSB from its row of the corpus "
-                     "runner" % (s, int(np.abs(got.astype(np.int32) - rows[s]).max())))
-        process_launches = lstm.launches - before
-    print("demucs corpus runner: %d x 375 hops in %.3f s, launches %s and %d LSTM, %d plain "
-          "calls; Koala.process (%d streams, %d LSTM launches) bit for bit their rows on %s"
-          % (DEMUCS_B, batch_s, launched, runner_launches, plain.calls, DEMUCS_PROCESS_STREAMS,
-             process_launches, card), flush=True)
-    if runner_launches != 2 * 375 or not only_rowmm(launched) or plain.calls:
-        fail("demucs: the corpus runner's batch should launch the LSTM kernel twice a hop "
-             "(750), rowmm, no other kernel and no plain version: %d LSTM, %s, %d plain calls"
-             % (runner_launches, launched, plain.calls))
-    if process_launches != DEMUCS_PROCESS_STREAMS * 2 * 375:
+        del runner, out, plain_out
+        before = lstm.launches, rowmm.fused_launches, overlap.launches
+        with PlainCalls() as process_plain:
+            for s in range(DEMUCS_PROCESS_STREAMS):
+                k = kt.create(ACCESS_KEY, model_path=path, device="gpu")
+                try:
+                    if k.delay_sample != 768:
+                        fail("demucs: Koala.delay_sample is %d, not 768" % k.delay_sample)
+                    got = np.concatenate([k.process(pcm[s, i:i + 256])
+                                          for i in range(0, pcm.shape[1], 256)])
+                finally:
+                    k.delete()
+                if not np.array_equal(got, rows[s]):
+                    lsb = int(np.abs(got.astype(np.int32) - rows[s]).max())
+                    fail("demucs: stream %d's Koala.process is %d LSB from its row of the "
+                         "corpus runner" % (s, lsb))
+        process_launches, process_fused, process_tails = (
+            lstm.launches - before[0], rowmm.fused_launches - before[1],
+            overlap.launches - before[2])
+    print("demucs corpus runner: %d x 375 hops in %.3f s (the plain U-Net %.3f s, bit for bit "
+          "%s), launches %s, %d of rowmm's fused entry, %d overlap passes and %d LSTM, %d plain "
+          "calls; Koala.process (%d streams, %d LSTM launches, %d fused, %d overlap, %d plain "
+          "calls) bit for bit their rows on %s"
+          % (DEMUCS_B, batch_s, plain_s, plain_equal, launched, fused, tails, runner_launches,
+             plain.calls, DEMUCS_PROCESS_STREAMS, process_launches, process_fused,
+             process_tails, process_plain.calls, card), flush=True)
+    if (runner_launches != DEMUCS_LSTM or not only_rowmm(launched)
+            or launched["rowmm"] != DEMUCS_ROWMM or fused != DEMUCS_FUSED
+            or tails != DEMUCS_OVERLAP or plain.calls):
+        fail("demucs: the corpus runner's batch should launch the LSTM kernel %d times, rowmm "
+             "%d times (%d of them its fused entry), the overlap pass %d times, no other kernel "
+             "and no plain version: %d LSTM, %s, %d fused, %d overlap, %d plain calls"
+             % (DEMUCS_LSTM, DEMUCS_ROWMM, DEMUCS_FUSED, DEMUCS_OVERLAP, runner_launches,
+                launched, fused, tails, plain.calls))
+    if not plain_equal:
+        fail("demucs: the corpus runner's batch differs from the same batch through the plain "
+             "U-Net")
+    if process_launches != DEMUCS_PROCESS_STREAMS * DEMUCS_LSTM:
         fail("demucs: Koala.process made %d LSTM launches, not two a hop" % process_launches)
-    return {"demucs_corpus_runner": runner_launches, "demucs_Koala.process": process_launches}
+    hops = DEMUCS_PROCESS_STREAMS * 375
+    if (process_fused != DEMUCS_FUSED_HOP * hops or process_tails != DEMUCS_OVERLAP_HOP * hops
+            or process_plain.calls):
+        fail("demucs: one stream's Koala.process should launch rowmm's fused entry %d times and "
+             "the overlap pass %d times a hop, and no plain version: %d fused, %d overlap over "
+             "%d hops, %d plain calls" % (DEMUCS_FUSED_HOP, DEMUCS_OVERLAP_HOP, process_fused,
+                                          process_tails, hops, process_plain.calls))
+
+    # the fused products and overlap passes of one block of the cell, each
+    # held to its plain version on the same inputs
+    entries = load_script("unet_fused_times_torch").measure(torch.device("cuda", 0))
+    for e in entries:
+        print("demucs %-9s %-8s %8.4f ms, bound %.4f ms (%s), %.1f%% of it; plain %.4f ms; bits "
+              "%s on %s" % (e["product"], e["kind"], e["ms"], e["bound_ms"], e["bound_by"],
+                            e["roofline_pct"], e["plain_ms"],
+                            "equal" if e["bits_equal"] else "DIFFER", card))
+    bad = [e["product"] for e in entries if not e["bits_equal"]]
+    if bad:
+        fail("demucs: %s differ from their plain versions at the cell's block" % bad)
+
+    def entry(name, kind, source, what, launches_by_path):
+        mine = [e for e in entries if e["kind"] == kind]
+        return {"name": name, "route": "cuda", "source": source, "replaces": None,
+                **{t: sum(e[t] for e in mine) for t in ("ms", "plain_ms", "bound_ms")},
+                "library_ms": None,
+                "bound_by": "the %d %s of a block at %d x 8 hops, each at its own"
+                            % (len(mine), what, DEMUCS_B),
+                "shape": [DEMUCS_B, 8], "products": mine,
+                "launches_by_path": launches_by_path,
+                "launches": sum(launches_by_path.values())}
+
+    return (
+        {"demucs_corpus_runner": runner_launches, "demucs_Koala.process": process_launches},
+        entry("rowmm_fused", "fused", "koala_tpu_torch/csrc/rowmm.cu", "fused products",
+              {"demucs_corpus_runner": fused, "demucs_Koala.process": process_fused}),
+        entry("overlap_add", "overlap", "koala_tpu_torch/csrc/overlap.cu", "overlap passes",
+              {"demucs_corpus_runner": tails, "demucs_Koala.process": process_tails}))
 
 
 def main() -> None:
@@ -3735,7 +3824,8 @@ def main() -> None:
 
     # ---- 12c. Demucs on the cell's path, its LSTM at depth 2048
     s = time.perf_counter()
-    lstm_entry["launches_by_path"].update(demucs_phase(kt, card, reset_counts, counts))
+    demucs_lstm, fused_entry, overlap_entry = demucs_phase(kt, card, reset_counts, counts)
+    lstm_entry["launches_by_path"].update(demucs_lstm)
     phase_s["demucs"] = time.perf_counter() - s
     from koala_tpu_torch.ops.kernels import lstm
     lstm_entry["launches"] = lstm.launches
@@ -3822,7 +3912,11 @@ def main() -> None:
              phase_s["generators"], phase_s["fullsubnet"], phase_s["mmse_gain"],
              phase_s["demucs"]))
 
-    kernels += [lstm_entry, mmse_entry]
+    for kr in (fused_entry, overlap_entry):
+        print("kernel %-13s ms %.4f plain_ms %.4f bound_ms %.4f (%s) launches %s on %s"
+              % (kr["name"], kr["ms"], kr["plain_ms"], kr["bound_ms"], kr["bound_by"],
+                 kr["launches_by_path"], card))
+    kernels += [lstm_entry, mmse_entry, fused_entry, overlap_entry]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 // Types and small device functions that every kernel of the package shares:
-// the bf16 type, the activation functions in the forms the JAX package uses,
-// and the 128-byte rounding of shared-memory carving. The tensor-core and
+// the bf16 type, the activation functions in the forms the JAX package uses
+// (the sigmoid is also PyTorch's float form, 1 / (1 + exp(-x))), PyTorch's
+// bf16 rounding and ReLU, and the 128-byte rounding of shared-memory carving. The tensor-core and
 // copy helpers are in resident.cuh, the tiled product in tile_gemm.cuh.
 //
 // Every product of the package has the numerics of the JAX package's
@@ -17,6 +18,14 @@ namespace koala {
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// PyTorch's t.bfloat16().float(): round to the nearest bf16, ties to even.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// PyTorch's relu on a float (clamp_min(x, 0)): a NaN stays a NaN.
+__device__ __forceinline__ float relu_keep_nan(float x) { return isnan(x) ? x : fmaxf(x, 0.0f); }
 
 // jax.nn.gelu's default form (approximate=True): the tanh approximation.
 __device__ __forceinline__ float gelu_tanh(float x) {

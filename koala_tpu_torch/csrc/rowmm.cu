@@ -44,6 +44,12 @@
 //  - rowmm_col_kernel (N = 1 at more rows): a thread a row.
 //  - rowmm_tile_kernel (over 1024 rows): a 128 x 64, 128 x 32 or 64 x 64
 //    tile of 8 x 8 or 4 x 8 elements a thread, A by 16-byte copies.
+//  - rowmm_fused_kernel, rowmm_fused_narrow_kernel (the fused entry,
+//    Demucs's bf16 products: over 1024 rows and at most): the 128 x 64
+//    tile's and the narrow kernel's main loops and chains (tile_product,
+//    narrow_product), A rounded to bf16 on load, and an epilogue of bias,
+//    ReLU, GLU and bf16 rounding applied to each element after its chain;
+//    instantiations of their own, so the plain kernels are as they were.
 
 #include <cstdint>
 
@@ -285,6 +291,9 @@ constexpr int NAR_COLS = 8;
 constexpr int NAR_SLOTS = 32 / NAR_COLS;     // row slots a warp
 constexpr int NAR_WARPS = 4;
 constexpr int NAR_THREADS = 32 * NAR_WARPS;
+// a GLU's value and gate columns interleave in blocks of this many
+// (ops/kernels/rowmm.py pair_glu): gate column n + GLU_HALF is value n's
+constexpr int GLU_HALF = 32;
 
 template <int ROWS, int KC, int STAGES>
 __global__ void __launch_bounds__(NAR_THREADS)
@@ -372,6 +381,123 @@ __global__ void __launch_bounds__(NAR_THREADS)
 
   if (n < N && row < R && r0 + row < M) C[(size_t)(r0 + row) * N + n] = acc;
 }
+
+// narrow_product<ROWS, KC, STAGES, NC>: rowmm_narrow_kernel's main loop for
+// the fused entry's narrow kernel. Each thread sums NC chains of its row:
+// chain c that of B's column nb + c GLU_HALF + l % 8 (one chain, or a GLU's
+// value and its gate). With round_a each thread rounds the elements of A it
+// copied to bf16, in shared memory, once a chunk, before the barrier that
+// publishes them. The plain kernel keeps its own source: run through this
+// function (the rounding compiled out) it compiled to other code and ran
+// 2-8% slower at one to 64 rows on an H100.
+template <int ROWS, int KC, int STAGES, int NC>
+__device__ __forceinline__ void narrow_product(const RowsOfA& A, const float* __restrict__ B,
+                                               int M, int N, int K, int nb, bool round_a,
+                                               float (&acc)[NC]) {
+  constexpr int W = NAR_WARPS, R = ROWS, THREADS = NAR_THREADS;
+  constexpr int A_COPIES = (R + W - 1) / W;                      // rows of A a warp copies
+  static_assert(R % NAR_SLOTS == 0 && R <= W * NAR_SLOTS, "rows");
+  constexpr int BC = NAR_COLS * NC;                              // columns of B's panel
+  constexpr int B_COPIES = KC * BC / THREADS;
+  // KC + 4 floats a row of A's chunk: aligned float4 reads, a warp's four rows
+  // in distinct banks
+  constexpr int LDA = KC + 4;
+  static_assert(B_COPIES * THREADS == KC * BC && KC % 32 == 0, "copies");
+  __shared__ __align__(16) float Bs[STAGES][KC][BC];
+  __shared__ __align__(16) float As[STAGES][R][LDA];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int col = lane % NAR_COLS, row = w * NAR_SLOTS + lane / NAR_COLS;
+  const int r0 = blockIdx.x * R;
+  const bool warp_rows = w * NAR_SLOTS < R && r0 + w * NAR_SLOTS < M;   // the whole warp's
+  // a warp copies whole 32-k rows of A (rows w + j W), a lane a k
+  const float* arow[A_COPIES];
+#pragma unroll
+  for (int j = 0; j < A_COPIES; ++j) {
+    const int r = r0 + w + j * W;
+    arow[j] = w + j * W < R && r < M ? A.row(r) : nullptr;
+  }
+  const int chunks = (K + KC - 1) / KC;
+
+  auto issue = [&](int c) {
+    const int s = c % STAGES, k0 = c * KC;
+#pragma unroll
+    for (int j = 0; j < B_COPIES; ++j) {
+      const int e = threadIdx.x + j * THREADS, kk = e / BC, cc = e % BC;
+      const int k = k0 + kk;
+      int n = nb + cc;
+      if constexpr (NC > 1) n = nb + (cc / NAR_COLS) * GLU_HALF + cc % NAR_COLS;
+      if (k < K && n < N) cp_async4(&Bs[s][kk][cc], B + (size_t)k * N + n, 4);
+    }
+#pragma unroll
+    for (int h = 0; h < KC / 32; ++h) {
+      const int k = k0 + 32 * h + lane;
+#pragma unroll
+      for (int j = 0; j < A_COPIES; ++j)
+        if (arow[j] != nullptr && k < K)
+          cp_async4(&As[s][w + j * W][32 * h + lane], arow[j] + k, 4);
+    }
+  };
+
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] = 0.0f;
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < chunks) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    if (round_a) {
+      // this thread's copies of chunk c have landed: round them in place
+      const int s = c % STAGES, k0 = c * KC;
+#pragma unroll
+      for (int h = 0; h < KC / 32; ++h)
+#pragma unroll
+        for (int j = 0; j < A_COPIES; ++j)
+          if (arow[j] != nullptr && k0 + 32 * h + lane < K) {
+            float& v = As[s][w + j * W][32 * h + lane];
+            v = koala::round_bf16(v);
+          }
+    }
+    __syncthreads();
+    if (c + STAGES - 1 < chunks) issue(c + STAGES - 1);
+    cp_async_commit();
+    if (!warp_rows) continue;
+    const int s = c % STAGES;
+    const int kc = min(KC, K - c * KC);
+    if (kc == KC) {
+      // 32 k at a time: the columns' values into registers, then the chains
+#pragma unroll
+      for (int h = 0; h < KC; h += 32) {
+        float b[NC][32];
+#pragma unroll
+        for (int q = 0; q < NC; ++q)
+#pragma unroll
+          for (int kk = 0; kk < 32; ++kk) b[q][kk] = Bs[s][h + kk][q * NAR_COLS + col];
+#pragma unroll
+        for (int q = 0; q < 32; q += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(&As[s][row][h + q]);
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            acc[i] = fmaf(a.x, b[i][q], acc[i]);
+            acc[i] = fmaf(a.y, b[i][q + 1], acc[i]);
+            acc[i] = fmaf(a.z, b[i][q + 2], acc[i]);
+            acc[i] = fmaf(a.w, b[i][q + 3], acc[i]);
+          }
+        }
+      }
+    } else {
+      for (int kk = 0; kk < kc; ++kk) {
+#pragma unroll
+        for (int i = 0; i < NC; ++i)
+          acc[i] = fmaf(As[s][row][kk], Bs[s][kk][i * NAR_COLS + col], acc[i]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 
 // ---------------------------------------------------------------------------
 // rowmm_col_kernel: N = 1. A thread per row, COL_ROWS rows a block; each
@@ -554,6 +680,256 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), (BM / TM) * (BN / TN) >
 }
 
 // ---------------------------------------------------------------------------
+// tile_product<BM, BN, TM, TN, BK, STAGES>: rowmm_tile_kernel's main loop
+// for the fused entry's tile: each thread sums its TM x TN elements (columns
+// (j / 4) (BN / GN) + 4 tx + j % 4) into acc. With round_a (the fused
+// entry's bf16 operands) each thread rounds the pieces of A it copied, in
+// shared memory, once a chunk, before the barrier that publishes them. The
+// plain kernel keeps its own source: run through this function (the
+// rounding compiled out) it compiled to other code and ran 0.8% slower at
+// mmse's STFT shape on an H100 (32.52-32.75 ms against 32.40-32.48 in five
+// alternating runs each).
+
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+__device__ __forceinline__ void tile_product(const RowsOfA& A, const float* __restrict__ B, int M,
+                                             int N, int K, long long a_extent, bool round_a,
+                                             float (&acc)[TM][TN]) {
+  constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY;
+  constexpr int GN = TN / 4;
+  constexpr int LDA = BK + 4, PA = LDA / 4;               // floats and pieces a row's span
+  constexpr int A_COPIES = (BM * PA + THREADS - 1) / THREADS;
+  static_assert(TN % 4 == 0 && BK % 4 == 0, "tile");
+  static_assert((BK * BN) % THREADS == 0 && (BK * BN / 4) % THREADS == 0, "copies of B");
+  __shared__ __align__(16) float As[STAGES][BM][LDA];
+  __shared__ __align__(16) float Bs[STAGES][BK][BN];
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const float* a_end = A.a + a_extent;
+  // the rows whose pieces this thread copies, as offsets from A (-1: past M)
+  int acopy[A_COPIES];
+#pragma unroll
+  for (int j = 0; j < A_COPIES; ++j) {
+    const int e = tid + j * THREADS, r = m0 + e / PA;
+    acopy[j] = e < BM * PA && r < M ? (int)(A.row(r) - A.a) : -1;
+  }
+  // where this thread's rows sit in their spans (every chunk starts BK floats,
+  // a multiple of 16 bytes, past the last)
+  int aread[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + ty + TY * i;
+    aread[i] = r < M ? span_off(A.row(r)) : 0;
+  }
+  const bool b16 = N % 4 == 0 && (reinterpret_cast<uintptr_t>(B) & 15) == 0;
+  const int chunks = (K + BK - 1) / BK;
+
+  auto issue = [&](int c) {
+    const int s = c % STAGES, k0 = c * BK;
+#pragma unroll
+    for (int j = 0; j < A_COPIES; ++j) {
+      const int e = tid + j * THREADS;
+      if (acopy[j] >= 0) copy_piece(&As[s][e / PA][0], A.a + acopy[j] + k0, e % PA, a_end);
+    }
+    if (b16) {
+#pragma unroll
+      for (int j = 0; j < BK * BN / 4 / THREADS; ++j) {
+        const int e = tid + j * THREADS, kk = e / (BN / 4), nn = 4 * (e % (BN / 4));
+        const int k = k0 + kk, n = n0 + nn;
+        if (k < K) cp_async16(&Bs[s][kk][nn], B + (size_t)k * N + n, n < N ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK * BN / THREADS; ++j) {
+        const int e = tid + j * THREADS, kk = e / BN, nn = e % BN;
+        const int k = k0 + kk, n = n0 + nn;
+        if (k < K && n < N) cp_async4(&Bs[s][kk][nn], B + (size_t)k * N + n, 4);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < chunks) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    if (round_a) {
+      // this thread's copies of chunk c have landed: round them in place
+      const int s = c % STAGES;
+#pragma unroll
+      for (int j = 0; j < A_COPIES; ++j) {
+        const int e = tid + j * THREADS;
+        if (acopy[j] >= 0) {
+          float4* q = reinterpret_cast<float4*>(&As[s][e / PA][4 * (e % PA)]);
+          float4 v = *q;
+          v.x = koala::round_bf16(v.x);
+          v.y = koala::round_bf16(v.y);
+          v.z = koala::round_bf16(v.z);
+          v.w = koala::round_bf16(v.w);
+          *q = v;
+        }
+      }
+    }
+    __syncthreads();
+    if (c + STAGES - 1 < chunks) issue(c + STAGES - 1);
+    cp_async_commit();
+    const int s = c % STAGES;
+    const int kc = min(BK, K - c * BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      if (kk < kc) {
+        float a[TM], b[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = As[s][ty + TY * i][aread[i] + kk];
+#pragma unroll
+        for (int g = 0; g < GN; ++g) {
+          const float4 v = *reinterpret_cast<const float4*>(&Bs[s][kk][g * (BN / GN) + tx * 4]);
+          b[4 * g] = v.x; b[4 * g + 1] = v.y; b[4 * g + 2] = v.z; b[4 * g + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+
+// ---------------------------------------------------------------------------
+// The fused entry (ops/kernels/rowmm.py ``fused``), for the bf16 products of
+// Demucs's U-Net: a product (A rounded to bf16 on load where round_a), then,
+// per element and in this order, each the IEEE f32 operation of the PyTorch
+// op it stands for:
+//   + bias[n];
+//   ReLU (relu);
+//   GLU (GLU): value x sigmoid(gate), the gate of the value in column
+//     64 b + j (j < 32) being column 64 b + 32 + j (the caller lays the
+//     weight's columns out so: ``rowmm.pair_glu``), summed by the same
+//     thread; output column 32 b + j;
+//   a bf16 round of the stored value (round_out; held as f32).
+// The result goes where e.out's rows lie (as RowsOfA: a slice of a skip
+// buffer). So the passes over an activation that PyTorch would make after
+// the product (the bias add, ReLU, sigmoid, product of halves, rounding,
+// copy into the buffer) and the rounded copy of the operand before it are
+// never made. Two kernels, as the plain entry's plan: the 128 x 64 tile's
+// (rowmm_fused_kernel, over ROW_MAX rows) and the narrow kernel's
+// (rowmm_fused_narrow_kernel, at most ROW_MAX rows: one stream's hop), each
+// with its plain kernel's main loop and chain.
+
+struct Epilogue {
+  const float* bias;      // [N]
+  float* out;             // rows: (r / inner) s_outer + (r % inner) s_inner floats past out
+  int inner;
+  long long s_outer, s_inner;
+  int relu, round_out, vec;
+
+  __device__ __forceinline__ float* row(int r) const {
+    return out + (long long)(r / inner) * s_outer + (long long)(r % inner) * s_inner;
+  }
+
+  // one element's output from its sum and bias (no GLU)
+  __device__ __forceinline__ float one(float acc, float b) const {
+    float x = __fadd_rn(acc, b);
+    if (relu) x = koala::relu_keep_nan(x);
+    return round_out ? koala::round_bf16(x) : x;
+  }
+
+  // a GLU's output from its value's and its gate's sums and biases
+  __device__ __forceinline__ float glu(float value, float vb, float gate, float gb) const {
+    const float x = __fmul_rn(__fadd_rn(value, vb), koala::sigmoidf(__fadd_rn(gate, gb)));
+    return round_out ? koala::round_bf16(x) : x;
+  }
+};
+
+constexpr int FUSED_BM = 128, FUSED_BN = 64, FUSED_THREADS = 128;
+
+template <bool GLU>
+__global__ void __launch_bounds__(FUSED_THREADS, 3)
+    rowmm_fused_kernel(RowsOfA A, const float* __restrict__ B, Epilogue e, int M, int N, int K,
+                       long long a_extent, int round_a) {
+  constexpr int BM = FUSED_BM, BN = FUSED_BN, TM = 8, TN = 8, TX = BN / TN, TY = BM / TM;
+  static_assert(BN == 2 * GLU_HALF, "a GLU's value and gate in one block");
+  float acc[TM][TN];
+  tile_product<BM, BN, TM, TN, 16, 3>(A, B, M, N, K, a_extent, round_a != 0, acc);
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int m0 = blockIdx.x * BM;
+  int col[TN];
+  float bias[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    col[j] = blockIdx.y * BN + (j / 4) * (BN / 2) + tx * 4 + j % 4;
+    bias[j] = col[j] < N ? __ldg(e.bias + col[j]) : 0.0f;
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + ty + TY * i;
+    if (r >= M) continue;
+    float* o = e.row(r);
+    if (GLU) {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = e.glu(acc[i][j], bias[j], acc[i][j + 4], bias[j + 4]);
+      float* dst = o + blockIdx.y * (BN / 2) + tx * 4;
+      if (e.vec) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dst[j] = v[j];
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = e.one(acc[i][4 * h + q], bias[4 * h + q]);
+        if (e.vec && col[4 * h] < N) {
+          *reinterpret_cast<float4*>(o + col[4 * h]) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (col[4 * h + q] < N) o[col[4 * h + q]] = v[q];
+        }
+      }
+    }
+  }
+}
+
+// rowmm_fused_narrow_kernel<ROWS, KC, STAGES, GLU>: the narrow kernel's
+// block (8 output columns, ROWS rows), a thread one output element: a chain
+// (its column's), or with GLU two (its value's and its gate's, columns
+// nb + l % 8 and nb + GLU_HALF + l % 8).
+
+template <int ROWS, int KC, int STAGES, bool GLU>
+__global__ void __launch_bounds__(NAR_THREADS)
+    rowmm_fused_narrow_kernel(RowsOfA A, const float* __restrict__ B, Epilogue e, int M, int N,
+                              int K, int round_a) {
+  constexpr int NC = GLU ? 2 : 1;
+  const int o0 = blockIdx.y * NAR_COLS;                 // the block's first output column
+  const int nb = GLU ? 2 * GLU_HALF * (o0 / GLU_HALF) + o0 % GLU_HALF : o0;
+  float acc[NC];
+  narrow_product<ROWS, KC, STAGES, NC>(A, B, M, N, K, nb, round_a != 0, acc);
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int col = lane % NAR_COLS, row = w * NAR_SLOTS + lane / NAR_COLS;
+  const int r = blockIdx.x * ROWS + row;
+  if (row >= ROWS || r >= M || o0 + col >= (GLU ? N / 2 : N)) return;
+  float* o = e.row(r) + o0 + col;
+  if constexpr (GLU)
+    *o = e.glu(acc[0], __ldg(e.bias + nb + col), acc[1], __ldg(e.bias + nb + GLU_HALF + col));
+  else
+    *o = e.one(acc[0], __ldg(e.bias + nb + col));
+}
+
+
+// ---------------------------------------------------------------------------
 // The variants, by the number the host's plan gives (ops/kernels/rowmm.py
 // VARIANTS mirrors this table; koala_rowmm_variant reports it).
 
@@ -632,6 +1008,64 @@ extern "C" int koala_rowmm(const void* a, const void* b, void* c, int M, int N, 
     default:
       rowmm_tile_kernel<64, 64, 4, 8, 16, 3><<<grid, v.threads, 0, s>>>(A, B, C, M, N, K,
                                                                         a_extent);
+      break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The fused entry: out = epilogue(A @ B) by ``variant`` (0: the fused
+// narrow<4,128,4>; 1: narrow<16,64,5>, five stages, so that a GLU's panel of
+// 16 columns of B fits 48 KiB of static shared memory; 2: the tile<128,64>;
+// ops/kernels/rowmm.py FUSED_VARIANTS mirrors these). A's rows as in
+// koala_rowmm, out's likewise (out_inner, out_outer_stride,
+// out_inner_stride; its columns contiguous: N of them, N / 2 with glu); bias
+// [N]. glu takes N a multiple of 64 and no relu. Nonzero for what it does
+// not take or a refused launch.
+extern "C" int koala_rowmm_fused(const void* a, const void* b, const void* bias, void* out, int M,
+                                 int N, int K, int a_inner, long long a_outer_stride,
+                                 long long a_inner_stride, long long a_extent, int out_inner,
+                                 long long out_outer_stride, long long out_inner_stride,
+                                 int variant, int round_a, int glu, int relu, int round_out,
+                                 void* stream) {
+  if (M < 1 || N < 1 || K < 0 || a_inner < 1 || out_inner < 1 || a_extent >= (1ll << 31) ||
+      variant < 0 || variant > 2 || (glu && (N % FUSED_BN != 0 || relu)))
+    return (int)cudaErrorInvalidValue;
+  const int rows = variant == 0 ? 4 : variant == 1 ? 16 : FUSED_BM;
+  const int n_cols = variant == 2 ? N : glu ? N / 2 : N;        // columns the grid covers
+  const int block_cols = variant == 2 ? FUSED_BN : NAR_COLS;
+  const dim3 grid((M + rows - 1) / rows, (n_cols + block_cols - 1) / block_cols);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0 && out_outer_stride % 4 == 0 &&
+                   out_inner_stride % 4 == 0 && (glu || N % 4 == 0);
+  const RowsOfA A{(const float*)a, a_inner, a_outer_stride, a_inner_stride};
+  const Epilogue e{(const float*)bias, (float*)out, out_inner, out_outer_stride, out_inner_stride,
+                   relu, round_out, vec ? 1 : 0};
+  const float* B = (const float*)b;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (variant * 2 + (glu ? 1 : 0)) {
+    case 0:
+      rowmm_fused_narrow_kernel<4, 128, 4, false><<<grid, NAR_THREADS, 0, s>>>(A, B, e, M, N, K,
+                                                                                round_a);
+      break;
+    case 1:
+      rowmm_fused_narrow_kernel<4, 128, 4, true><<<grid, NAR_THREADS, 0, s>>>(A, B, e, M, N, K,
+                                                                               round_a);
+      break;
+    case 2:
+      rowmm_fused_narrow_kernel<16, 64, 5, false><<<grid, NAR_THREADS, 0, s>>>(A, B, e, M, N, K,
+                                                                                round_a);
+      break;
+    case 3:
+      rowmm_fused_narrow_kernel<16, 64, 5, true><<<grid, NAR_THREADS, 0, s>>>(A, B, e, M, N, K,
+                                                                               round_a);
+      break;
+    case 4:
+      rowmm_fused_kernel<false><<<grid, FUSED_THREADS, 0, s>>>(A, B, e, M, N, K, a_extent,
+                                                               round_a);
+      break;
+    default:
+      rowmm_fused_kernel<true><<<grid, FUSED_THREADS, 0, s>>>(A, B, e, M, N, K, a_extent,
+                                                              round_a);
       break;
   }
   return (int)cudaGetLastError();

@@ -55,6 +55,16 @@ states, the normalisation, GLU, ReLU and the skip adds are f32. With
 tests'). Every row's arithmetic is the same in any block, so ``step`` and
 ``apply_sequence`` give the same bits for any cut of a stream into calls.
 
+The glue around the products is fused into them (``_encoder``,
+``_decoder``): ``rowmm.fused`` rounds a product's f32 operand as it loads it
+and applies the bias, ReLU, GLU and the rounding of the next operand to
+each element after its sum, writing the encoder's GLU into its skip buffer;
+``overlap.overlap_add`` finishes each transposed convolution (the
+overlap-add, bias, ReLU, the next level's skip add and rounding, the carried
+overlap) in one pass. Each fused op is the IEEE f32 operation of the PyTorch
+op it stands for, so the bits are those of ``_encoder_plain`` and
+``_decoder_plain``, the same stages as separate PyTorch passes.
+
 State, batch axes leading: the resamplers' carries ``resample_in``
 [*, 111], ``resample_up`` [*, 111], ``resample_down`` [*, 224],
 ``resample_out`` [*, 256 delay_hops - 484 pairs]; ``enc_in`` [*, 4]; the
@@ -74,14 +84,16 @@ at load (``params_from_tree``). Names and layouts are denoiser's
 Under a profiler a block records the spans ``demucs.resample`` (twice: the
 normalisation and upsamplers, then the downsamplers and scale; counts
 ``hops``, ``launches``), ``demucs.encoder`` and ``demucs.decoder``
-(``hops``, ``rows``: streams x positions at level 1, ``launches``) and
-``demucs.lstm`` (``hops``, ``rows``: streams, ``launches``); ``launches``
-counts the ``rowmm`` and LSTM kernels launched inside
-(``profiling.counted_span``).
+(``hops``, ``rows``: streams x positions at level 1, ``launches``,
+``fused``) and ``demucs.lstm`` (``hops``, ``rows``: streams, ``launches``);
+``launches`` counts the ``rowmm`` and LSTM kernels launched inside
+(``profiling.counted_span``), ``fused`` the launches of ``rowmm``'s fused
+entry among them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict, List, NamedTuple, Tuple
@@ -92,7 +104,7 @@ from torch import nn
 
 from .. import profiling
 from ..constants import FRAME_LENGTH
-from ..ops.kernels import lstm, rowmm
+from ..ops.kernels import lstm, overlap, rowmm
 from ..ops.kernels.rowmm import matmul
 from .base import ParamModule, Placeholder, constant_on, num_params, param
 
@@ -264,20 +276,18 @@ class Demucs(ParamModule):
         """A product's right operand as ``rowmm`` takes it, [K, N] rounded to
         the compute dtype and held as f32: ``enc{k}`` (level k's strided
         convolution, rows tap-major: [8 C_{k-1}, C_k]), ``enc{k}.1x1``,
-        ``dec{k}.1x1`` ([C_k, 2 C_k]) and ``dec{k}.t`` (the transposed
-        convolution, [C_k, 8 C_{k-1}], columns tap-major)."""
+        ``dec{k}.1x1`` ([C_k, 2 C_k]), the same as ``enc{k}.glu`` and
+        ``dec{k}.glu`` with their columns in ``rowmm.pair_glu``'s order (the
+        fused entry's GLU), and ``dec{k}.t`` (the transposed convolution,
+        [C_k, 8 C_{k-1}], columns tap-major)."""
         level, _, part = name.partition(".")
-        k = int(level[3:])
-        depth = len(self.encoder)
-        if level.startswith("enc"):
-            conv = getattr(self.encoder[k - 1], "2" if part == "1x1" else "0")
-        else:
-            conv = getattr(self.decoder[depth - k], "0" if part == "1x1" else "2")
-        w = conv.weight
+        w = self._conv(level, part).weight
 
         def build():
             if part == "1x1":
                 m = w[:, :, 0].t()
+            elif part == "glu":
+                m = rowmm.pair_glu(w[:, :, 0].t())
             elif part == "t":
                 m = w.permute(0, 2, 1).reshape(w.shape[0], -1)
             else:
@@ -287,11 +297,21 @@ class Demucs(ParamModule):
         return self.derived("%s:%s" % (name, dtype), build)
 
     def bias(self, name: str) -> torch.Tensor:
+        """The bias of ``operand(name)``'s columns (``.glu``: paired too)."""
         level, _, part = name.partition(".")
+        b = self._conv(level, part).bias
+        if part != "glu":
+            return b
+        return self.derived("%s:bias" % name, lambda: rowmm.pair_glu(b).contiguous())
+
+    def _conv(self, level: str, part: str) -> Conv:
+        """``enc{k}`` or ``dec{k}``'s layer: its 1x1 convolution for part
+        ``1x1`` or ``glu``, else its strided or transposed one."""
         k = int(level[3:])
+        one = part in ("1x1", "glu")
         if level.startswith("enc"):
-            return getattr(self.encoder[k - 1], "2" if part == "1x1" else "0").bias
-        return getattr(self.decoder[len(self.encoder) - k], "0" if part == "1x1" else "2").bias
+            return getattr(self.encoder[k - 1], "2" if one else "0")
+        return getattr(self.decoder[len(self.encoder) - k], "0" if one else "2")
 
     def cell_operands(self, i: int, dtype: str):
         """LSTM layer ``i`` as the cell takes it: bf16, the kernel's (w
@@ -472,9 +492,56 @@ def _conv_window(win: torch.Tensor, n_out: int) -> torch.Tensor:
     return win.as_strided((win.shape[0], n_out, KERNEL * c), (win.stride(0), STRIDE * c, 1))
 
 
+def _glu_1x1(params: Demucs, level: str, a: torch.Tensor, dtype: str, round_out: bool,
+             out: torch.Tensor) -> torch.Tensor:
+    """``level``'s 1x1 convolution and GLU of a [rows, n, C], into out
+    [rows, n, C] (rounded where round_out): ``rowmm.fused``'s GLU over the
+    paired operand ``{level}.glu`` where C is a multiple of
+    ``rowmm.GLU_BLOCK`` (every level of dns64), else, at the small widths
+    that pairing does not take, the fused entry's bias over ``{level}.1x1``
+    and the GLU and rounding as PyTorch ops (the same bits)."""
+    if out.shape[-1] % rowmm.GLU_BLOCK == 0:
+        return rowmm.fused(a, params.operand(level + ".glu", dtype), params.bias(level + ".glu"),
+                           glu=True, round_out=round_out, out=out)
+    z = rowmm.fused(a, params.operand(level + ".1x1", dtype), params.bias(level + ".1x1"))
+    g = _glu(z, torch.empty_like(out))
+    return out.copy_(_rounder(dtype)(g) if round_out else g)
+
+
 def _encoder(params: Demucs, st, new, u, count, cfg):
     """u [rows, 1024 T] -> the skips of levels 1 .. depth-1 (buffers [rows,
-    skip_k + P_k T, C_k], the carry first) and e_depth [rows, T, C_depth]."""
+    skip_k + P_k T, C_k], the carry first) and e_depth [rows, T, C_depth].
+    Each level is two calls of ``rowmm.fused``: the strided convolution
+    reads its window over the f32 input (u, or the skip buffer) rounded on
+    load and stores ReLU(. + bias) rounded, the next product's operand; the
+    1x1 convolution's GLU goes straight into the skip buffer (f32)."""
+    lay, ch = _layout(cfg), channels(cfg)
+    dtype, depth, rows = cfg["compute_dtype"], cfg["depth"], u.shape[0]
+    bf16 = dtype == "bfloat16"
+    t_len = u.shape[1] // lay.per_hop[0]
+    win = torch.cat([st["enc_in"], u], dim=1)
+    new["enc_in"] = win[:, win.shape[1] - lay.enc_carry[1]:].clone()
+    skips = {}
+    for k in range(1, depth + 1):
+        n_out = lay.per_hop[k] * t_len
+        h = rowmm.fused(_conv_window(win, n_out), params.operand("enc%d" % k, dtype),
+                        params.bias("enc%d" % k), relu=True, round_a=bf16, round_out=bf16)
+        if k == depth:
+            return skips, _glu_1x1(params, "enc%d" % k, h, dtype, False,
+                                   torch.empty((rows, n_out, ch[k]), device=u.device))
+        keep = lay.skip[k]
+        buf = torch.empty((rows, keep + n_out, ch[k]), device=u.device)
+        buf[:, :keep] = st["skip%d" % k]
+        _glu_1x1(params, "enc%d" % k, h, dtype, False, buf[:, keep:])
+        skips[k] = buf
+        new["skip%d" % k] = buf[:, n_out:].clone()
+        win = buf[:, keep - lay.enc_carry[k + 1]:]
+
+
+def _encoder_plain(params: Demucs, st, new, u, count, cfg):
+    """Plain version of ``_encoder``: each product through ``rowmm`` on an
+    operand rounded by its own pass, then the bias, ReLU, rounding and GLU
+    as PyTorch ops (the same bits)."""
     lay, ch, rnd = _layout(cfg), channels(cfg), _rounder(cfg["compute_dtype"])
     dtype, depth, rows = cfg["compute_dtype"], cfg["depth"], u.shape[0]
     t_len = u.shape[1] // lay.per_hop[0]
@@ -532,8 +599,46 @@ def _lstm(params: Demucs, st, new, e, count, cfg):
     return d
 
 
+def _head_glu(g: torch.Tensor, count: torch.Tensor, k: int, t_len: int, lay: Layout) -> None:
+    """Zero, in place, each 1x1 output g [rows, P_k T, C] whose transposed
+    convolution's overlap would reach the stream's position 0 from position
+    -1: a stream's first ``before`` hops lie before position 0 at level k,
+    and the last position of its hop before - 1 is no context of position 0."""
+    per_hop = lay.per_hop[k]
+    before = lay.dec_lag[k] // per_hop
+    for j in range(min(t_len, before)):
+        g[:, per_hop * (j + 1) - 1].mul_((count + j != before - 1).float()[:, None])
+
+
 def _decoder(params: Demucs, st, new, d, skips, e_last, count, cfg):
-    """d_depth [rows, T, C] -> d_0 [rows, 1024 T]."""
+    """d_depth [rows, T, C] -> d_0 [rows, 1024 T]. Each level is the 1x1
+    convolution's GLU through ``rowmm.fused`` (stored rounded, the
+    transposed convolution's operand), the transposed convolution through
+    ``rowmm`` and ``overlap.overlap_add``, which also adds the bias, ReLU and
+    the next level's skip, and stores the next 1x1 product's operand rounded.
+    (A value's mask by 0 or 1 commutes with its rounding.)"""
+    lay, ch, rnd = _layout(cfg), channels(cfg), _rounder(cfg["compute_dtype"])
+    dtype, depth, rows = cfg["compute_dtype"], cfg["depth"], d.shape[0]
+    bf16 = dtype == "bfloat16"
+    t_len = d.shape[1] // lay.per_hop[depth]
+    a = rnd(d.add_(e_last))
+    for k in range(depth, 0, -1):
+        n_in, c_out = lay.per_hop[k] * t_len, ch[k - 1]
+        g = _glu_1x1(params, "dec%d" % k, a, dtype, bf16,
+                     torch.empty((rows, n_in, ch[k]), device=d.device))
+        _head_glu(g, count, k, t_len, lay)
+        p = matmul(g, params.operand("dec%d.t" % k, dtype))
+        a, new["overlap%d" % k] = overlap.overlap_add(
+            p.view(rows, n_in, 2, KERNEL - STRIDE, c_out), st["overlap%d" % k],
+            params.bias("dec%d.t" % k), relu=k > 1,
+            skip=skips[k - 1][:, :n_in * STRIDE] if k > 1 else None, round_out=bf16 and k > 1)
+    return a.view(rows, -1)
+
+
+def _decoder_plain(params: Demucs, st, new, d, skips, e_last, count, cfg):
+    """Plain version of ``_decoder``: the products through ``rowmm`` on
+    operands rounded by their own passes, GLU, the overlap-add, bias, ReLU
+    and skip adds as PyTorch ops (the same bits)."""
     lay, ch, rnd = _layout(cfg), channels(cfg), _rounder(cfg["compute_dtype"])
     dtype, depth, rows = cfg["compute_dtype"], cfg["depth"], d.shape[0]
     t_len = d.shape[1] // lay.per_hop[depth]
@@ -543,13 +648,7 @@ def _decoder(params: Demucs, st, new, d, skips, e_last, count, cfg):
         z = matmul(rnd(d), params.operand("dec%d.1x1" % k, dtype))
         g = _glu(z.add_(params.bias("dec%d.1x1" % k)),
                  torch.empty((rows, n_in, ch[k]), device=d.device))
-        # a stream's first `before` hops lie before position 0 at this level; the
-        # overlap of position -1 (the last of the stream's hop before - 1) is no
-        # context of position 0
-        per_hop = lay.per_hop[k]
-        before = lay.dec_lag[k] // per_hop
-        for j in range(min(t_len, before)):
-            g[:, per_hop * (j + 1) - 1].mul_((count + j != before - 1).float()[:, None])
+        _head_glu(g, count, k, t_len, lay)
         p = matmul(rnd(g), params.operand("dec%d.t" % k, dtype))
         p = p.view(rows, n_in, 2, KERNEL - STRIDE, c_out)
         out = torch.empty((rows, n_in, KERNEL - STRIDE, c_out), device=d.device)
@@ -563,9 +662,16 @@ def _decoder(params: Demucs, st, new, d, skips, e_last, count, cfg):
     return d.view(rows, -1)
 
 
-def _counted(name: str, **counts):
-    """``profiling.counted_span`` over the ``rowmm`` and LSTM launch counters."""
-    return profiling.counted_span(name, lambda: rowmm.launches + lstm.launches, **counts)
+@contextlib.contextmanager
+def _counted(name: str, fused: bool = False, **counts):
+    """``profiling.counted_span`` over the ``rowmm`` and LSTM launch counters
+    (count ``launches``); with ``fused``, also the launches of ``rowmm``'s
+    fused entry among them (count ``fused``)."""
+    before = rowmm.fused_launches
+    with profiling.counted_span(name, lambda: rowmm.launches + lstm.launches, **counts) as s:
+        yield s
+        if fused and s is not None:
+            s.counts["fused"] = rowmm.fused_launches - before
 
 
 def _scale(st, hops: torch.Tensor):
@@ -597,11 +703,11 @@ def _block(params: Demucs, st, hops: torch.Tensor, out: torch.Tensor, cfg) -> Di
         y1, new["resample_in"] = _upsample(x, st["resample_in"])
         _head_mask(y1, count, 2 * FRAME_LENGTH, 2 * ZEROS)
         u, new["resample_up"] = _upsample(y1, st["resample_up"])
-    with _counted("demucs.encoder", hops=t_len, rows=rows * lay.per_hop[1] * t_len):
+    with _counted("demucs.encoder", fused=True, hops=t_len, rows=rows * lay.per_hop[1] * t_len):
         skips, e_last = _encoder(params, st, new, u, count, cfg)
     with _counted("demucs.lstm", hops=t_len, rows=rows):
         d = _lstm(params, st, new, e_last, count, cfg)
-    with _counted("demucs.decoder", hops=t_len, rows=rows * lay.per_hop[1] * t_len):
+    with _counted("demucs.decoder", fused=True, hops=t_len, rows=rows * lay.per_hop[1] * t_len):
         d0 = _decoder(params, st, new, d, skips, e_last, count, cfg)
     with _counted("demucs.resample", hops=t_len):
         _head_mask(d0, count, lay.per_hop[0], lay.dec_lag[0])

@@ -105,6 +105,13 @@ _SIGNATURES = {
     "koala_rowmm": ([_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _P], _I),
     "koala_rowmm_simple": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "koala_rowmm_variant": ([_I, _P], _I),
+    # a, b, bias, out, M, N, K, A's rows (inner, outer stride, inner stride,
+    # extent), out's rows (inner, outer stride, inner stride), variant,
+    # round_a, glu, relu, round_out
+    "koala_rowmm_fused": ([_P] * 4 + [_I] * 4 + [_L] * 3 + [_I] + [_L] * 2 + [_I] * 5 + [_P], _I),
+    # p, carry, bias, skip, out, carry_out, rows, n, C, skip row stride, relu,
+    # round_out
+    "koala_overlap_add": ([_P] * 6 + [_I] * 3 + [_L] + [_I] * 2 + [_P], _I),
     # x, h, c, h_out, c_out, w, b, their row strides, M, kx, kxp, H, tile rows,
     # passes a block, pass groups
     "koala_lstm_cell": ([_P] * 7 + [_L] * 5 + [_I] * 8 + [_P], _I),

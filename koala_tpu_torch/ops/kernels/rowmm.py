@@ -27,6 +27,15 @@ the scan branch's GRU projections): ``rowmm`` wherever autograd records no
 graph, ``torch.matmul`` where it records one (the training path, whose
 gradients go through autograd and whose numbers stay as they were). Every
 public entry point runs under ``torch.inference_mode()``.
+
+``fused(a, b, bias, ...)`` is the fused entry, for Demucs's bf16 products:
+the same product, then its epilogue (bias, ReLU, GLU over paired columns,
+a bf16 round of the result, written where the caller's rows lie), with A
+rounded to bf16 as it is loaded where asked. CUDA tensors launch the kernel
+that ``fused_plan`` picks at any row count (``rowmm_fused_narrow_kernel``
+up to ROW_MAX rows, ``rowmm_fused_kernel``'s tile above); CPU tensors run
+``fused_ref``, the plain rowmm and the PyTorch ops the epilogue stands for,
+which give the same bits.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from . import _build
 launches = 0
 # launches of ``rowmm_simple``, which no path of the port takes
 simple_launches = 0
+# launches of the fused entry's kernel (``fused``), also counted in ``launches``
+fused_launches = 0
 
 # rows of the plain version's blocks
 REF_ROWS = 16
@@ -62,6 +73,13 @@ VARIANTS = (
     ("tile<64,64>", 64, 64, 128),
 )
 COL = 3
+# the fused entry's kernels, by the number that csrc/rowmm.cu's
+# koala_rowmm_fused gives each: the narrow kernel's block of 4 or 16 rows and
+# 8 output columns, the tile's of 128 rows and 64 product columns
+FUSED_VARIANTS = ("fused narrow<4,128,4>", "fused narrow<16,64,5>", "fused tile<128,64>")
+# a GLU's value and gate columns interleave in blocks of this many (half the
+# fused tile's 64 columns a block: a thread sums a value and its gate)
+GLU_BLOCK = 32
 # the most rows that a one-row kernel (narrow, row) takes; above it a tile does
 ROW_MAX = 1024
 # CUDA's limit on a grid's second dimension (the first takes 2**31 - 1)
@@ -260,6 +278,116 @@ def rowmm_simple(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return c
 
 
+def _round(t: torch.Tensor) -> torch.Tensor:
+    """The bf16 rounding of an operand, held as f32."""
+    return t.bfloat16().float()
+
+
+def _glu_pairs(n: int) -> int:
+    """The number of GLU_BLOCK blocks of a GLU over n product columns."""
+    if n % (2 * GLU_BLOCK):
+        raise ValueError("rowmm: a GLU pairs its value and gate columns in blocks of %d: "
+                         "N = %d is no multiple of %d" % (GLU_BLOCK, n, 2 * GLU_BLOCK))
+    return n // (2 * GLU_BLOCK)
+
+
+def pair_glu(w: torch.Tensor) -> torch.Tensor:
+    """A GLU's product columns [..., 2C] ([value | gate], as ``nn.GLU`` splits
+    them; C a multiple of GLU_BLOCK) in the fused entry's order: blocks of
+    GLU_BLOCK value columns, each followed by their gates' columns."""
+    c, blocks = w.shape[-1] // 2, _glu_pairs(w.shape[-1])
+    return torch.stack([w[..., :c].unflatten(-1, (blocks, GLU_BLOCK)),
+                        w[..., c:].unflatten(-1, (blocks, GLU_BLOCK))], dim=-2).flatten(-3)
+
+
+def unpair_glu(w: torch.Tensor) -> torch.Tensor:
+    """``pair_glu``'s inverse: [value | gate]."""
+    pairs = w.unflatten(-1, (_glu_pairs(w.shape[-1]), 2, GLU_BLOCK))
+    return torch.cat([pairs[..., 0, :].flatten(-2), pairs[..., 1, :].flatten(-2)], dim=-1)
+
+
+def fused_plan(m: int) -> int:
+    """The fused entry's variant (FUSED_VARIANTS) for m rows, from the row
+    count alone, as ``plan``: the narrow kernel's block of 4 rows up to 4,
+    of 16 up to ROW_MAX, the tile above."""
+    return 0 if m <= 4 else 1 if m <= ROW_MAX else 2
+
+
+def fused_ref(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,
+              relu: bool, glu: bool, round_a: bool, round_out: bool) -> torch.Tensor:
+    """Plain version of ``fused``: the product through ``matmul`` (the
+    kernel ``plan`` picks on a card, ``rowmm_ref`` on the CPU), then the
+    PyTorch ops the kernel's epilogue stands for, into ``out``."""
+    z = matmul(_round(a) if round_a else a, b)
+    z.add_(bias)
+    if relu:
+        z.relu_()
+    if glu:
+        pairs = z.unflatten(-1, (_glu_pairs(z.shape[-1]), 2, GLU_BLOCK))
+        z = torch.mul(pairs[..., 0, :], pairs[..., 1, :].sigmoid_()).flatten(-2)
+    out.copy_(_round(z) if round_out else z)
+    return out
+
+
+def launch_fused(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,
+                 relu: bool = False, glu: bool = False, round_a: bool = False,
+                 round_out: bool = False, variant: Optional[int] = None) -> torch.Tensor:
+    """``fused`` on the card by FUSED_VARIANTS[variant] (``fused`` passes
+    ``fused_plan``'s; the card tests pass every variant at any row count).
+    out's rows may lie as ``row_layout`` says, its columns contiguous."""
+    global launches, fused_launches
+    _check(a, b)
+    m = _check_cuda(a, b)
+    k, n = b.shape
+    if glu:
+        _glu_pairs(n)
+    _build.require_cuda(bias, "rowmm bias", torch.float32, (n,))
+    layout = (m, 0, k) if a.is_contiguous() else row_layout(a)
+    out_layout = row_layout(out)
+    if layout is None or out_layout is None or out.dtype != torch.float32:
+        raise ValueError("rowmm fused: a's rows %s or out's %s are not taken"
+                         % (a.stride(), out.stride()))
+    if out.device != a.device or tuple(out.shape) != tuple(a.shape[:-1]) + (n // 2 if glu else n,):
+        raise ValueError("rowmm fused: out %s on %s for a %s, n %d%s"
+                         % (tuple(out.shape), out.device, tuple(a.shape), n,
+                            ", glu" if glu else ""))
+    if m == 0:
+        return out
+    inner, s_outer, s_inner = layout
+    extent = ((m - 1) // inner) * s_outer + (min(inner, m) - 1) * s_inner + k
+    if extent >= 2 ** 31:
+        raise ValueError("rowmm a: %d floats from its first element to its last: too many for "
+                         "one launch" % extent)
+    status = _build.library().koala_rowmm_fused(
+        a.data_ptr(), b.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, inner, s_outer,
+        s_inner, extent, *out_layout, fused_plan(m) if variant is None else variant,
+        int(round_a), int(glu), int(relu), int(round_out), _build.stream_handle(a.device))
+    launches += 1
+    fused_launches += 1
+    _build.check(status, "koala_rowmm_fused")
+    return out
+
+
+def fused(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, *, relu: bool = False,
+          glu: bool = False, round_a: bool = False, round_out: bool = False,
+          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fused entry: a [..., K] @ b [K, N] (every element the fixed
+    chain of ``rowmm``; with round_a, a's elements rounded to bf16 first),
+    then per element + bias [N], ReLU (relu), GLU (glu: b's and bias's
+    columns in ``pair_glu``'s order, N / 2 outputs) and a bf16 round
+    (round_out), into out ([..., N or N / 2], whose rows may be a slice of
+    a larger buffer; a new tensor where None). CPU tensors take the plain
+    version, ``fused_ref``; CUDA tensors launch the kernel that
+    ``fused_plan`` picks (or raise): the same bits."""
+    _check(a, b)
+    k, n = b.shape
+    if out is None:
+        out = torch.empty(a.shape[:-1] + (n // 2 if glu else n,), device=a.device)
+    if a.device.type == "cpu":
+        return fused_ref(a, b, bias, out, relu, glu, round_a, round_out)
+    return launch_fused(a, b, bias, out, relu, glu, round_a, round_out)
+
+
 def variants_on_card():
     """The card's VARIANTS table (csrc/rowmm.cu, through
     ``koala_rowmm_variant``): (rows, columns, threads) of each variant."""
@@ -298,4 +426,6 @@ def chain_ms(k: int, clock_mhz: float, fma_cycles: int = 4) -> float:
 
 
 __all__ = ["rowmm", "rowmm_ref", "rowmm_simple", "launch", "plan", "plan_for", "row_layout",
-           "matmul", "bound", "chain_ms", "variants_on_card", "VARIANTS", "ROW_MAX"]
+           "matmul", "fused", "fused_ref", "launch_fused", "fused_plan", "pair_glu",
+           "unpair_glu", "bound", "chain_ms", "variants_on_card", "VARIANTS",
+           "FUSED_VARIANTS", "GLU_BLOCK", "ROW_MAX"]

@@ -1,7 +1,7 @@
 """Every variant of the fixed-order product ``rowmm`` on a CUDA card, at the
 port's call-site shapes and row counts: bits and times.
 
-    python3 scripts/rowmm_variants_torch.py [--rows 1,21,64] [--out FILE]
+    python3 scripts/rowmm_variants_torch.py [--rows 1,21,64] [--sites stft_re] [--out FILE]
 
 For each (K, N) of the port's frame-local products (the nine of a
 ``process_chunk`` call and the scan branch's [384, 1152]) and each row
@@ -53,6 +53,8 @@ ROW_KERNEL_TIMED_MAX = 8192
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", default=",".join(map(str, ROWS)))
+    ap.add_argument("--sites", default=",".join(name for name, _, _ in SITES),
+                    help="the call sites to run, by name")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out", "rowmm_variants.json"))
     args = ap.parse_args()
@@ -79,7 +81,8 @@ def main() -> None:
         return time_ms(fn, args.reps, warmup=2, queued=True)
 
     with torch.inference_mode():
-        for name, k, n in SITES:
+        sites = args.sites.split(",")
+        for name, k, n in (site for site in SITES if site[0] in sites):
             b = torch.randn((k, n), generator=gen, device=dev) * 0.1
             for m in rows:
                 a = torch.randn((m, k), generator=gen, device=dev)

@@ -1553,3 +1553,217 @@ def test_demucs_server_equals_process(cuda_device, demucs_model, fsn_pcm):
             assert np.array_equal(np.concatenate(got), want[s]), s
     finally:
         server.close()
+
+
+# -- Demucs's fused U-Net: rowmm's fused entry and the overlap pass ---------------
+
+# (name, K, N, form) of dns64's 20 products: each level's strided convolution
+# (bias, ReLU, rounded: its operand rounded on load), its 1x1 (GLU, f32 into
+# the skip buffer), the decoder's 1x1 (GLU, rounded) and transposed
+# convolution (the plain product, then the overlap pass)
+DNS64_CH = (1, 64, 128, 256, 512, 1024)
+DNS64_PRODUCTS = [p for k in range(1, 6) for p in (
+    ("enc%d" % k, 8 * DNS64_CH[k - 1], DNS64_CH[k], "conv"),
+    ("enc%d.glu" % k, DNS64_CH[k], 2 * DNS64_CH[k], "glu"),
+    ("dec%d.glu" % k, DNS64_CH[k], 2 * DNS64_CH[k], "glu_round"),
+    ("dec%d.t" % k, DNS64_CH[k], 8 * DNS64_CH[k - 1], "tail"))]
+
+
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 63, 1025, 16384])
+@pytest.mark.parametrize("name,k,n,form", DNS64_PRODUCTS, ids=[p[0] for p in DNS64_PRODUCTS])
+def test_demucs_fused_forms_match_the_composition(cuda_device, name, k, n, form, rows):
+    """Each of dns64's products at 1, 63, 1025 and 16384 rows: the fused
+    kernel that ``fused_plan`` picks (the narrow kernels at 1 and 63, the
+    tile at 1025 and 16384) against the plain rowmm and the PyTorch ops it
+    stands for, bit for bit; the strided convolution's A a
+    window of overlapping rows over f32 values, the encoder's GLU into a
+    slice of a skip buffer; the transposed convolution's overlap pass
+    against its PyTorch composition, with a carry and a skip buffer's slice."""
+    from koala_tpu_torch.ops.kernels import overlap
+
+    lead = (2, rows // 2) if rows % 2 == 0 else (1, rows)
+    w = _bf16(_randn(k + n, (k, n), 1.0 / np.sqrt(k), cuda_device))
+    bias = _randn(n, (n,), 0.3, cuda_device)
+    if form == "conv":
+        c_in = k // 8
+        base = _randn(rows, (lead[0], 4 * lead[1] + 4, c_in), 1.0, cuda_device)
+        a = base.as_strided(lead + (k,), (base.stride(0), 4 * c_in, 1))
+    else:
+        a = _bf16(_randn(rows + k, lead + (k,), 1.0, cuda_device))
+    before = rowmm.fused_launches
+    if form == "conv":
+        got = rowmm.launch_fused(a, w, bias, torch.empty(lead + (n,), device=cuda_device),
+                                 relu=True, round_a=True, round_out=True)
+        want = rowmm.fused_ref(a, w, bias, torch.empty_like(got), True, False, True, True)
+    elif form.startswith("glu"):
+        buf = torch.full((lead[0], lead[1] + 5, n // 2), -3.0, device=cuda_device)
+        rnd = form == "glu_round"
+        got = rowmm.launch_fused(a, w, bias, buf[:, 5:], glu=True, round_out=rnd)
+        want = rowmm.fused_ref(a, w, bias, torch.empty_like(got), False, True, False, rnd)
+        assert float(buf[:, :5].max()) == -3.0 and float(buf[:, :5].min()) == -3.0
+    else:
+        p = rowmm.rowmm(a, w).view(lead + (2, 4, n // 8))
+        c_out, last = n // 8, name == "dec1.t"
+        carry = _randn(7, (lead[0], 4, c_out), 0.5, cuda_device)
+        skip = None if last else _randn(8, (lead[0], 4 * lead[1] + 9, c_out), 0.5,
+                                        cuda_device)[:, :4 * lead[1]]
+        b = bias[:c_out].contiguous()
+        got, got_carry = overlap.overlap_add(p, carry, b, not last, skip, not last)
+        want, want_carry = overlap.overlap_add_ref(p, carry, b, not last, skip, not last)
+        assert torch.equal(got_carry, want_carry)
+    torch.cuda.synchronize()
+    assert rowmm.fused_launches == before + (form != "tail")
+    assert got.shape == want.shape and torch.equal(got, want), name
+    assert float(got.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_fused_sigmoid_is_torchs(cuda_device):
+    """The GLU epilogue's sigmoid and product against torch's, bit for bit,
+    over 2**22 finite floats spread over every exponent, in each fused
+    kernel: A [M, 1] of the values and B of ones, so that value and gate are
+    the value itself."""
+    bits = torch.arange(0, 2 ** 32, 1024, dtype=torch.int64).to(torch.int32)
+    x = bits.view(torch.float32)
+    x = x[torch.isfinite(x)].to(cuda_device).reshape(-1, 1)
+    w = torch.ones((1, 64), device=cuda_device)
+    b = torch.zeros((64,), device=cuda_device)
+    want = rowmm.fused_ref(x, w, b, torch.empty((x.shape[0], 32), device=cuda_device), False,
+                           True, False, False)
+    for variant in range(len(rowmm.FUSED_VARIANTS)):
+        got = rowmm.launch_fused(x, w, b, torch.empty_like(want), glu=True, variant=variant)
+        torch.cuda.synchronize()
+        differ = (got.view(torch.int32) != want.view(torch.int32)).any(dim=1)
+        assert not bool(differ.any()), (variant, x[differ][:8].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("glu", [False, True])
+def test_fused_entry_writes_unaligned_rows(cuda_device, glu):
+    """Output rows that are not 16-byte aligned take the 4-byte stores: the
+    same bits, nothing written outside them, in each fused kernel."""
+    k, n, m = 64, 128, 3000
+    a = _bf16(_randn(1, (m, k), 1.0, cuda_device))
+    w = _bf16(_randn(2, (k, n), 0.1, cuda_device))
+    bias = _randn(3, (n,), 0.3, cuda_device)
+    width = n // 2 if glu else n
+    want = rowmm.fused_ref(a, w, bias, torch.empty((m, width), device=cuda_device), not glu, glu,
+                           False, True)
+    for variant in range(len(rowmm.FUSED_VARIANTS)):
+        flat = torch.full((m * width + 2,), 5.0, device=cuda_device)
+        got = rowmm.launch_fused(a, w, bias, flat[1:-1].view(m, width), relu=not glu, glu=glu,
+                                 round_out=True, variant=variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and float(flat[0]) == 5.0 and float(flat[-1]) == 5.0, \
+            variant
+
+
+@pytest.mark.cuda
+def test_demucs_fused_runner_batch_is_the_plain_paths(cuda_device, demucs_model, fsn_pcm,
+                                                      monkeypatch):
+    """A CorpusRunner batch at dns64's widths (4 x 6.0 s, one block of 375
+    hops): the fused path's output bit for bit the plain path's
+    (``_encoder_plain``, ``_decoder_plain``); 15 fused launches and 5 overlap
+    passes a block, no plain version of the fused entry."""
+    from koala_tpu_torch.models import demucs
+    from koala_tpu_torch.ops.kernels import overlap
+    from koala_tpu_torch.parallel import CorpusRunner, make_mesh
+
+    path, _ = demucs_model
+    batch = (fsn_pcm / 32768.0).astype(np.float32)
+    runner = CorpusRunner(path, global_batch=4, utterance_samples=375 * 256,
+                          mesh=make_mesh(["gpu:0"]))
+    runner.enhance_batch(batch)
+    plain_calls = []
+    monkeypatch.setattr(rowmm, "fused_ref", lambda *a: plain_calls.append(1))
+    fused, tails = rowmm.fused_launches, overlap.launches
+    out = runner.enhance_batch(batch).clone()
+    torch.cuda.synchronize()
+    assert rowmm.fused_launches - fused == 15 and overlap.launches - tails == 5
+    assert not plain_calls
+    monkeypatch.undo()
+    monkeypatch.setattr(demucs, "_encoder", demucs._encoder_plain)
+    monkeypatch.setattr(demucs, "_decoder", demucs._decoder_plain)
+    fused = rowmm.fused_launches
+    plain = runner.enhance_batch(batch)
+    torch.cuda.synchronize()
+    assert rowmm.fused_launches == fused
+    assert torch.equal(out, plain) and float(out.abs().max()) > 0
+
+
+DNS64_FUSED = [p for p in DNS64_PRODUCTS if p[3] != "tail"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [0, 1, 2], ids=["narrow4", "narrow16", "tile"])
+@pytest.mark.parametrize("name,k,n,form", DNS64_FUSED, ids=[p[0] for p in DNS64_FUSED])
+def test_every_fused_variant_matches_the_composition(cuda_device, name, k, n, form, variant):
+    """Each fused kernel, whatever ``fused_plan`` would pick, at each of
+    dns64's fused products and at 1, 5, 63, 300 and 1100 rows (a partial
+    block of every variant): bit for bit the plain rowmm and the PyTorch
+    ops, the strided convolution's A a window over f32 values rounded on
+    load, the GLUs into a slice of a larger buffer."""
+    w = _bf16(_randn(k + n, (k, n), 1.0 / np.sqrt(k), cuda_device))
+    bias = _randn(n, (n,), 0.3, cuda_device)
+    for rows in (1, 5, 63, 300, 1100):
+        if form == "conv":
+            base = _randn(rows, (1, 4 * rows + 4, k // 8), 1.0, cuda_device)
+            a = base.as_strided((1, rows, k), (base.stride(0), k // 2, 1))
+            got = rowmm.launch_fused(a, w, bias, torch.empty((1, rows, n), device=cuda_device),
+                                     relu=True, round_a=True, round_out=True, variant=variant)
+            want = rowmm.fused_ref(a, w, bias, torch.empty_like(got), True, False, True, True)
+        else:
+            a = _bf16(_randn(rows + k, (1, rows, k), 1.0, cuda_device))
+            buf = torch.full((1, rows + 3, n // 2), -3.0, device=cuda_device)
+            rnd = form == "glu_round"
+            got = rowmm.launch_fused(a, w, bias, buf[:, 3:], glu=True, round_out=rnd,
+                                     variant=variant)
+            want = rowmm.fused_ref(a, w, bias, torch.empty_like(got), False, True, False, rnd)
+            assert float(buf[:, :3].abs().max()) == 3.0 and float(buf[:, :3].max()) == -3.0
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (name, rows)
+        assert float(got.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_demucs_one_streams_hops_take_the_fused_kernels(cuda_device, demucs_model, fsn_pcm,
+                                                         monkeypatch):
+    """One stream's Engine.step at dns64's widths, hop by hop (256 rows at
+    level 1 down to one at level 5): 15 launches of the fused entry and 5
+    overlap passes a hop, never its plain version; bit for bit the same hops
+    through the plain U-Net (``_encoder_plain``, ``_decoder_plain``)."""
+    from koala_tpu_torch.engine.stream import load_model
+    from koala_tpu_torch.models import demucs
+    from koala_tpu_torch.ops.kernels import overlap
+
+    eng, params = load_model(demucs_model[0], cuda_device)
+    hops = torch.as_tensor(fsn_pcm[:1, :12 * 256] / 32768.0, dtype=torch.float32,
+                           device=cuda_device).reshape(1, 12, 256)
+
+    def run():
+        st, outs = eng.init_state((1,), cuda_device), []
+        with torch.inference_mode():
+            for t in range(hops.shape[1]):
+                st, o = eng.step(params, st, hops[:, t])
+                outs.append(o)
+        torch.cuda.synchronize()
+        return torch.stack(outs, dim=1)
+
+    plain_calls = []
+    real_ref = rowmm.fused_ref
+    monkeypatch.setattr(rowmm, "fused_ref", lambda *a: plain_calls.append(1) or real_ref(*a))
+    fused, tails = rowmm.fused_launches, overlap.launches
+    out = run()
+    assert rowmm.fused_launches - fused == 15 * 12 and overlap.launches - tails == 5 * 12
+    assert not plain_calls
+    monkeypatch.setattr(demucs, "_encoder", demucs._encoder_plain)
+    monkeypatch.setattr(demucs, "_decoder", demucs._decoder_plain)
+    fused = rowmm.fused_launches
+    plain = run()
+    assert rowmm.fused_launches == fused
+    assert torch.equal(out, plain) and float(out[:, 3:].abs().max()) > 0
